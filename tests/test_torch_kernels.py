@@ -1,0 +1,260 @@
+"""Kernel parity of the torch port against the reference kernels.
+
+Each plain PyTorch version in ``repro_torch.kernels`` (the CPU path of
+its ``ops.py`` wrapper, and the oracle the CUDA kernel is held to on the
+card) is checked against the reference's Pallas kernel run in interpret
+mode and against the NumPy all-pairs functions.  Inputs are float32 with
+integer values, so every implementation computes exact results and the
+comparisons are exact equality.  The CUDA kernels themselves run only on
+a GPU: ``tests/test_torch_cuda.py`` holds them against the plain versions
+there.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.hop_dist.kernel import (fattree_hop_tpu,  # noqa: E402
+                                           torus_hop_tpu)
+from repro.kernels.swap_gain.kernel import swap_select_tpu  # noqa: E402
+from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.hop_dist import ops as hop_ops  # noqa: E402
+from repro_torch.kernels.hop_dist.ref import (  # noqa: E402
+    fattree_hop_pairs_ref, torus_hop_pairs_ref)
+from repro_torch.kernels.swap_gain.ops import swap_select  # noqa: E402
+from repro_torch.kernels.swap_gain.ref import (GAIN_EPS,  # noqa: E402
+                                               swap_select_ref)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Small CPU tensors: intra-op threads only contend across workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# ------------------------------------------------------------- hop_dist
+TORUS_CASES = [
+    ((8, 8, 8), 37, 53),       # ragged
+    ((32, 32, 16), 256, 128),  # the implicit 16k-node torus extents
+    ((5, 7), 12, 12),          # 2-D, non-pow2 extents
+    ((2, 3, 4, 3), 9, 30),     # 4-D
+]
+
+
+@pytest.mark.parametrize("dims,m,k", TORUS_CASES)
+def test_torus_hop_ref_matches_pallas_and_numpy(dims, m, k):
+    rng = np.random.default_rng(0)
+    cu = np.stack([rng.integers(0, d, m) for d in dims], 1).astype(np.float32)
+    cv = np.stack([rng.integers(0, d, k) for d in dims], 1).astype(np.float32)
+    want = hop_ops.torus_hop_pairs_np(cu, cv, dims).astype(np.float32)
+    pallas = np.asarray(torus_hop_tpu(jnp.asarray(cu), jnp.asarray(cv),
+                                      dims, interpret=True))
+    got = hop_ops.torus_hop(torch.from_numpy(cu), torch.from_numpy(cv), dims)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # batched form: each candidate's block equals its unbatched block
+    cu_b = torch.from_numpy(np.stack([cu, cu[::-1].copy()]))
+    cv_b = torch.from_numpy(np.stack([cv, cv[::-1].copy()]))
+    got_b = hop_ops.torus_hop(cu_b, cv_b, dims)
+    np.testing.assert_array_equal(got_b[0].numpy(), want)
+    np.testing.assert_array_equal(got_b[1].numpy(),
+                                  want[::-1, ::-1])
+
+
+@pytest.mark.parametrize("k,m,kk", [(4, 16, 16), (6, 37, 53), (8, 128, 100)])
+def test_fattree_hop_ref_matches_pallas_and_numpy(k, m, kk):
+    from repro.core.fattree import FatTreeTopology
+    topo = FatTreeTopology(k)
+    c = topo.coords_array().astype(np.float32)
+    rng = np.random.default_rng(0)
+    u = rng.integers(0, topo.n_nodes, m)
+    v = rng.integers(0, topo.n_nodes, kk)
+    want = topo.hop_matrix()[np.ix_(u, v)].astype(np.float32)
+    np.testing.assert_array_equal(hop_ops.fattree_hop_pairs_np(c[u], c[v]),
+                                  want)
+    pallas = np.asarray(fattree_hop_tpu(jnp.asarray(c[u]), jnp.asarray(c[v]),
+                                        interpret=True))
+    got = hop_ops.fattree_hop(torch.from_numpy(c[u]), torch.from_numpy(c[v]))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(pallas, want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    got64 = fattree_hop_pairs_ref(torch.from_numpy(c[u]).double(),
+                                  torch.from_numpy(c[v]).double())
+    assert got64.dtype == torch.float64
+    np.testing.assert_array_equal(got64.numpy(), want)
+
+
+def test_numpy_hop_copies_match_reference():
+    """The port's own NumPy copies equal the reference's functions."""
+    from repro.kernels.hop_dist import ops as ref_ops
+    rng = np.random.default_rng(3)
+    dims = (6, 5, 4)
+    cu = np.stack([rng.integers(0, d, 50) for d in dims], 1)
+    cv = np.stack([rng.integers(0, d, 40) for d in dims], 1)
+    np.testing.assert_array_equal(hop_ops.torus_hop_pairs_np(cu, cv, dims),
+                                  ref_ops.torus_hop_pairs_np(cu, cv, dims))
+    fu = rng.integers(0, 3, (50, 3))
+    fv = rng.integers(0, 3, (40, 3))
+    np.testing.assert_array_equal(hop_ops.fattree_hop_pairs_np(fu, fv),
+                                  ref_ops.fattree_hop_pairs_np(fu, fv))
+
+
+# ------------------------------------------------------------ swap_select
+def _select_inputs(n, B=3, seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 7, (B, n, n)).astype(np.float32)
+    M = A + A.transpose(0, 2, 1)
+    Bm = rng.integers(0, 5, (n, n)) * (rng.random((n, n)) < 0.3)
+    G = (Bm + Bm.T).astype(np.float32)
+    contrib = (G[None] * M).sum(-1)
+    return M, G, contrib
+
+
+def _oracle(M, G, contrib, i, n_valid):
+    """Composed NumPy oracle: full gains row, mask, argmax, accept."""
+    g = (contrib[i] + contrib - 2.0 * G[i] * M[i] - M @ G[i] - G @ M[i])
+    g[i] = 0.0
+    g[n_valid:] = -np.inf
+    j = int(np.argmax(g))
+    gain = float(g[j])
+    if not (gain > np.float32(GAIN_EPS) and i < n_valid):
+        j = i
+    return gain, j
+
+
+@pytest.mark.parametrize("n,n_valid,block_rows", [
+    (16, 16, 8), (64, 64, 64), (200, 180, 64), (300, 256, 128)])
+def test_swap_select_ref_matches_pallas(n, n_valid, block_rows):
+    """Batched plain version == Pallas interpret == NumPy oracle, for
+    several movers per candidate, including first-occurrence ties."""
+    M, G, contrib = _select_inputs(n)
+    B = M.shape[0]
+    pallas = jax.jit(functools.partial(swap_select_tpu,
+                                       block_rows=block_rows,
+                                       interpret=True))
+    for movers in ((0, n // 3, n_valid - 1), (n - 1, 1, n // 2)):
+        i = np.array(movers, dtype=np.int64)
+        gain, j = swap_select_ref(torch.from_numpy(M), torch.from_numpy(G),
+                                  torch.from_numpy(contrib),
+                                  torch.from_numpy(i), n_valid)
+        assert gain.dtype == torch.float32 and j.dtype == torch.int64
+        for b in range(B):
+            want_gain, want_j = _oracle(M[b], G, contrib[b], int(i[b]),
+                                        n_valid)
+            pg, pj = pallas(jnp.asarray(M[b]), jnp.asarray(G),
+                            jnp.asarray(contrib[b]), jnp.int32(i[b]),
+                            jnp.int32(n_valid))
+            assert int(j[b]) == want_j == int(pj), (n, b, int(i[b]))
+            assert float(gain[b]) == want_gain == float(pg), (n, b)
+
+
+def test_swap_select_rejects_all_negative():
+    """No positive gain anywhere -> j == i (identity swap)."""
+    n = 32
+    M = np.ones((n, n), np.float32) - np.eye(n, dtype=np.float32)
+    G = M.copy()
+    contrib = (G * M).sum(1)
+    i = torch.tensor([3, 0, 31])
+    Mt = torch.from_numpy(np.stack([M] * 3))
+    gain, j = swap_select_ref(Mt, torch.from_numpy(G),
+                              torch.from_numpy(np.stack([contrib] * 3)), i, n)
+    assert j.tolist() == [3, 0, 31]
+    _, pj = swap_select_tpu(jnp.asarray(M), jnp.asarray(G),
+                            jnp.asarray(contrib), jnp.int32(3),
+                            jnp.int32(n), interpret=True)
+    assert int(pj) == 3
+    assert (gain <= GAIN_EPS).all()
+
+
+def test_swap_select_padding_mover_keeps_j():
+    """A padding mover (i >= n_valid) is always rejected (j == i) and
+    reports the masked best exactly as the reference kernel does."""
+    n, n_valid = 64, 40
+    M, G, contrib = _select_inputs(n, B=2, seed=4)
+    i = np.array([50, 63])
+    gain, j = swap_select(torch.from_numpy(M), torch.from_numpy(G),
+                          torch.from_numpy(contrib), torch.from_numpy(i),
+                          n_valid)
+    assert j.tolist() == [50, 63]
+    for b in range(2):
+        pg, pj = swap_select_tpu(jnp.asarray(M[b]), jnp.asarray(G),
+                                 jnp.asarray(contrib[b]), jnp.int32(i[b]),
+                                 jnp.int32(n_valid), interpret=True)
+        assert int(pj) == int(i[b])
+        assert float(gain[b]) == float(pg)
+
+
+# ------------------------------------------------------------- dispatch
+def test_cpu_tensors_run_plain_version_without_launching():
+    reset_launches()
+    c = torch.zeros(4, 3, dtype=torch.float64)
+    hop_ops.torus_hop(c, c, (4, 4, 4))
+    hop_ops.fattree_hop(c, c)
+    M, G, contrib = _select_inputs(8, B=1)
+    swap_select(torch.from_numpy(M), torch.from_numpy(G),
+                torch.from_numpy(contrib), torch.tensor([0]), 8)
+    assert LAUNCHES == {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0}
+
+
+def test_kernel_impl_refuses_cpu_tensors():
+    """impl='kernel' never quietly runs the plain version."""
+    c = torch.zeros(4, 3)
+    with pytest.raises(ValueError):
+        hop_ops.torus_hop(c, c, (4, 4, 4), impl="kernel")
+    with pytest.raises(ValueError):
+        hop_ops.fattree_hop(c, c, impl="kernel")
+    M, G, contrib = _select_inputs(8, B=1)
+    with pytest.raises(ValueError):
+        swap_select(torch.from_numpy(M), torch.from_numpy(G),
+                    torch.from_numpy(contrib), torch.tensor([0]), 8,
+                    impl="kernel")
+    with pytest.raises(ValueError):
+        hop_ops.torus_hop(c, c, (4, 4, 4), impl="fast")
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    """A build without a compiler raises instead of falling back."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    with pytest.raises(_build.KernelBuildError):
+        _build._nvcc()
+
+
+def test_count_launch_keeps_largest_shape():
+    from repro_torch.kernels import SHAPES, count_launch
+    reset_launches()
+    count_launch("torus_hop", (2, 8, 8))
+    count_launch("torus_hop", (1, 4, 4))
+    assert LAUNCHES["torus_hop"] == 2 and SHAPES["torus_hop"] == (2, 8, 8)
+    reset_launches()
+    assert LAUNCHES["torus_hop"] == 0 and SHAPES["torus_hop"] is None
+
+
+def test_build_dir_choice(monkeypatch, tmp_path):
+    """Explicit directory first, then the checkout's build/, then the
+    user's cache directory for an installed package."""
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
+    checkout = tmp_path / "co"
+    (checkout / "src" / "repro_torch" / "kernels").mkdir(parents=True)
+    (checkout / "pyproject.toml").write_text("")
+    monkeypatch.setattr(_build, "_PKG",
+                        checkout / "src" / "repro_torch" / "kernels")
+    assert _build._build_dir() == checkout / "build" / "torch_ext"
+    site = tmp_path / "lib" / "site-packages" / "repro_torch" / "kernels"
+    site.mkdir(parents=True)
+    monkeypatch.setattr(_build, "_PKG", site)
+    assert _build._build_dir() == tmp_path / "cache" / "repro_torch" \
+        / "torch_ext"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "mine"))
+    assert _build._build_dir() == tmp_path / "mine"
