@@ -20,10 +20,25 @@ toolkit.  The script
    before each placement and read just after; the three cheap cells are
    placed once more under ``torch.profiler`` for the device's busy time);
 4. holds each kernel against its plain version again at the largest shape
-   the placements handed it, and reports those times in the summary line.
+   the placements handed it, and reports those times in the summary line;
+5. holds the model-stack kernels (``flash_attention``, ``rmsnorm``,
+   ``swap_gain``) against their plain versions at the shapes smollm-135m
+   gives them, within the reference's kernel-test tolerances (exactly, for
+   ``swap_gain`` on integer-valued inputs), and times each beside the one
+   PyTorch call that computes the same function, where there is one;
+   ``rmsnorm`` and ``swap_gain`` are then driven once through their entry
+   points;
+6. runs smollm-135m at full width and depth (30 layers, float32,
+   NumPy-seeded weights) on ``cuda``: a 2048-token forward through the
+   flash kernel, held to the same forward through the plain version and to
+   the reference package's logits (``EXPECTED_FORWARD``); 8 decode steps
+   from empty caches, held to the forward (forward and decode then run
+   once more under ``torch.profiler``); and the serve driver with its
+   default arguments.
 
-Each phase prints one JSON line.  Then come the kernel summary line, the
-card's name and power limit, and, only when every phase passed, the final
+Steps 5 and 6 run between steps 2 and 3.  Each phase prints one JSON
+line.  Then come the kernel summary line, the card's name and power
+limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
 compiler's resource report and the profiler tables go to ``chiprun_out/``.
 
@@ -44,9 +59,11 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
-# bandwidth, and the non-tensor-core float32 / float64 rates.
+# bandwidth, the non-tensor-core float32 / float64 rates, and the dense
+# bfloat16 tensor-core rate.  float32 work is bound by the non-tensor rate
+# because TF32 is off (main() turns it off for matmul and cuDNN).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 # Reference hop-bytes.  The first two are committed in
 # benchmarks/BENCH_mapping.json (trajectory point "pr9-sharded-refine").
@@ -66,6 +83,50 @@ EXPECTED = {
     "place/fattree-k32/npb_dt-1024/faulty64": 128102400000.0,
 }
 
+# The full-width smollm-135m forward (model phase) is held to the
+# reference package at these positions of each of its two rows.
+HELD_POSITIONS = (0, 1023, 2047)
+# forward_summary of the reference package's forward (CPU, float32) on the
+# same weights, interop.seeded_params(smollm-135m, seed=0), and tokens,
+# SyntheticDataset(49152, 2048, 2, seed=0).batch(0), that the model phase
+# runs: row 0 at HELD_POSITIONS, then row 1.  The test
+# tests/test_torch_models.py::test_expected_forward_is_the_reference
+# recomputes them with the reference package:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_models.py -k expected_forward
+EXPECTED_FORWARD = [
+    [48467, -270.35507481644163, 0.04476463794708252],
+    [41252, 104.98106756992638, 0.0692596435546875],
+    [44141, 135.47028165729716, 0.2727811336517334],
+    [34651, -61.52785515564028, 0.10175049304962158],
+    [13620, -24.220059016370215, 0.060172438621520996],
+    [43510, -93.21593950502574, 0.29175543785095215],
+]
+
+
+def forward_summary(held) -> list:
+    """[argmax id, float64 sum, top-2 gap] of each row's logits at each of
+    ``HELD_POSITIONS``; ``held`` is ``logits[:, HELD_POSITIONS]``, a
+    (B, len(HELD_POSITIONS), V) NumPy array."""
+    import numpy as np
+    out = []
+    for row in held:
+        for v in np.asarray(row, dtype=np.float64):
+            top2 = np.sort(v)[-2:]
+            out.append([int(np.argmax(v)), float(v.sum()),
+                        float(top2[1] - top2[0])])
+    return out
+
+
+def forward_agrees(summary, expected=EXPECTED_FORWARD) -> bool:
+    """Sums within rtol 1e-4 of the expected ones, and argmax ids equal
+    wherever the expected top-2 gap exceeds 1e-3."""
+    return len(summary) == len(expected) and all(
+        abs(s[1] - e[1]) <= 1e-4 * abs(e[1])
+        and (s[0] == e[0] or e[2] <= 1e-3)
+        for s, e in zip(summary, expected))
+
+
 KERNELS = {
     "swap_select": dict(
         source="src/repro_torch/kernels/swap_gain/swap_select.cu",
@@ -76,6 +137,15 @@ KERNELS = {
     "fattree_hop": dict(
         source="src/repro_torch/kernels/hop_dist/hop_dist.cu",
         replaces="src/repro/kernels/hop_dist/kernel.py:85"),
+    "swap_gain": dict(
+        source="src/repro_torch/kernels/swap_gain/swap_select.cu",
+        replaces="src/repro/kernels/swap_gain/kernel.py:43"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/flash_attention/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81"),
+    "rmsnorm": dict(
+        source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
+        replaces="src/repro/kernels/rmsnorm/kernel.py:24"),
 }
 
 
@@ -136,7 +206,8 @@ def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
 # ------------------------------------------------------------------ kernels
 def _tdtype(name: str):
     import torch
-    return {"float64": torch.float64, "float32": torch.float32}[name]
+    return {"float64": torch.float64, "float32": torch.float32,
+            "bfloat16": torch.bfloat16}[name]
 
 
 def check_swap_select(dev, dt: str, B: int, n: int, tag: str) -> dict:
@@ -249,7 +320,8 @@ def main_shape_phase(dev) -> dict:
     """Each kernel at the largest shape the main path handed it (float64,
     the main path's dtype); these numbers go into the summary line."""
     recs = {}
-    for name, shape in MAIN_PATH_SHAPES.items():
+    for name in ("swap_select", "torus_hop", "fattree_hop"):
+        shape = MAIN_PATH_SHAPES[name]
         if shape is None:
             continue
         if name == "swap_select":
@@ -323,24 +395,25 @@ def place_phase(name: str, request, policies=("tofa",),
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                "ok": ok}
         if profile and pol == "tofa":
-            row.update(profiled_placement(engine, request, key))
+            row.update(profiled(lambda: engine.place(
+                request, policy="tofa", rng=np.random.default_rng(0)), key))
         emit(row)
         if not ok:
             raise AssertionError(f"{key} failed its check")
 
 
-def profiled_placement(engine, request, key: str) -> dict:
-    """One more warm placement under torch.profiler: wall time, summed
+def profiled(run, key: str) -> dict:
+    """``run()`` once more, warm, under torch.profiler: wall time, summed
     device time of every kernel and copy, and the device idle share."""
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.place(request, policy="tofa", rng=np.random.default_rng(0))
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -356,11 +429,11 @@ def profiled_placement(engine, request, key: str) -> dict:
             "device_ops": sum(e.count for e in dev_events)}
 
 
-MAIN_PATH_LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0}
-# largest shape each kernel was launched at on the placement phases:
-# (B, n) for swap_select, (B, m, k) for the hop kernels
-MAIN_PATH_SHAPES = {"swap_select": None, "torus_hop": None,
-                    "fattree_hop": None}
+# launches of each kernel on the path that needs it (the placement phases,
+# the model phase, the rmsnorm and swap_gain entry-point phases), and the
+# largest shape each was launched at there (see repro_torch.kernels.SHAPES)
+MAIN_PATH_LAUNCHES = {name: 0 for name in KERNELS}
+MAIN_PATH_SHAPES = {name: None for name in KERNELS}
 
 
 def keep_shape(name: str, shape) -> None:
@@ -403,6 +476,319 @@ def placement_phases() -> None:
         need=("fattree_hop",), warm=False)
 
 
+# ------------------------------------------------------ model-stack kernels
+# the reference's kernel-test tolerances (tests/test_kernels.py TOL)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh) of smollm-135m's 2048-token
+# forward, which the model phase hands the flash kernel
+FLASH_MAIN = (2, 9, 3, 2048, 2048, 64)
+RMSNORM_MAIN = (2 * 2048, 576)           # (rows, D): smollm's activations
+SWAP_GAIN_N = 1024
+
+
+def _record(max_abs_err, ms, host, plain, plain_ahead, library, nbytes,
+            ops, dt) -> dict:
+    bnd, by = bound_ms(nbytes, ops, dt)
+    return dict(max_abs_err=max_abs_err, ms=ms, host_ms=host, plain_ms=plain,
+                plain_queued_ahead=plain_ahead, library_ms=library,
+                bound_ms=bnd, bound_by=by)
+
+
+def check_flash(dev, dt: str, shape: tuple, tag: str) -> dict:
+    """flash_attention (causal) against its plain version at ``shape``,
+    timed beside F.scaled_dot_product_attention on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, H, Hkv, Sq, Sk, Dh = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(_tdtype(dt))
+               for s in ((B, H, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dh)))
+    got = flash_attention(q, k, v, causal=True, impl="kernel")
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), atol=TOL[dt],
+                             rtol=TOL[dt]))
+    del got, want
+    ms, host, _ = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                  impl="kernel"))
+    plain, _, plain_ahead = cuda_ms(
+        lambda: flash_attention_ref(q, k, v, causal=True), strict=False)
+    library, _, _ = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    size = q.element_size()
+    # the (query, key) pairs the causal mask leaves visible, each a Dh-long
+    # dot product for the score and a Dh-long update of the output
+    pairs = sum(max(0, min(Sk, i + 1 + Sk - Sq)) for i in range(Sq))
+    nbytes = (2 * B * H * Sq * Dh + 2 * B * Hkv * Sk * Dh) * size
+    rec = _record(err, ms, host, plain, plain_ahead, library, nbytes,
+                  4.0 * Dh * pairs * B * H, dt)
+    emit({"phase": tag, "kernel": "flash_attention", "dtype": dt,
+          "shape": list(shape), "causal": True, "tol": TOL[dt], "ok": ok,
+          **rec})
+    if not ok:
+        raise AssertionError(f"flash_attention disagrees at {shape} {dt}")
+    return rec
+
+
+def check_rmsnorm(dev, dt: str, rows: int, D: int, tag: str) -> dict:
+    """rmsnorm against the model's plain rmsnorm, timed beside
+    F.rms_norm."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((rows, D), generator=g, device=dev).to(_tdtype(dt))
+    w = (torch.randn(D, generator=g, device=dev) + 1.0).to(_tdtype(dt))
+    got, want = rmsnorm(x, w, impl="kernel"), rmsnorm_ref(x, w)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ok = bool(torch.allclose(got.float(), want.float(), atol=TOL[dt],
+                             rtol=TOL[dt]))
+    ms, host, _ = cuda_ms(lambda: rmsnorm(x, w, impl="kernel"))
+    plain, _, plain_ahead = cuda_ms(lambda: rmsnorm_ref(x, w), strict=False)
+    library, _, _ = cuda_ms(lambda: F.rms_norm(x, (D,), w, eps=1e-6))
+    size = x.element_size()
+    rec = _record(err, ms, host, plain, plain_ahead, library,
+                  (2 * rows * D + D) * size, 4.0 * rows * D, dt)
+    emit({"phase": tag, "kernel": "rmsnorm", "dtype": dt,
+          "shape": [rows, D], "tol": TOL[dt], "ok": ok, **rec})
+    if not ok:
+        raise AssertionError(f"rmsnorm disagrees at {(rows, D)} {dt}")
+    return rec
+
+
+def check_swap_gain(dev, dt: str, n: int, tag: str) -> dict:
+    """swap_gain against its plain version at (n, n), integer-valued
+    inputs, several movers: exact equality.  No single PyTorch call
+    computes the gains row (library_ms null)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.swap_gain.ops import swap_gain
+    from repro_torch.kernels.swap_gain.ref import swap_gain_ref
+
+    rng = np.random.default_rng(0)
+    tdt = _tdtype(dt)
+    A = rng.integers(0, 7, (n, n))
+    M = torch.tensor(A + A.T, dtype=tdt, device=dev)
+    S = rng.integers(0, 5, (n, n)) * (rng.random((n, n)) < 0.3)
+    G = torch.tensor(S + S.T, dtype=tdt, device=dev)
+    contrib = (G * M).sum(-1)
+    exact, err = True, 0.0
+    for i in (0, n // 3, n - 1):
+        iv = torch.tensor([i], device=dev)
+        got = swap_gain(M, G, contrib, iv, impl="kernel")
+        want = swap_gain_ref(M[None], G, contrib[None], iv)[0]
+        torch.cuda.synchronize()
+        exact &= bool(torch.equal(got, want))
+        err = max(err, float((got - want).abs().max()))
+    iv = torch.tensor([n // 3], device=dev)
+    ms, host, _ = cuda_ms(lambda: swap_gain(M, G, contrib, iv,
+                                            impl="kernel"))
+    plain, _, plain_ahead = cuda_ms(
+        lambda: swap_gain_ref(M[None], G, contrib[None], iv), strict=False)
+    size = M.element_size()
+    rec = _record(err, ms, host, plain, plain_ahead, None,
+                  (2 * n * n + 2 * n) * size + 8, 4.0 * n * n, dt)
+    emit({"phase": tag, "kernel": "swap_gain", "dtype": dt, "shape": [n, n],
+          "exact": exact, **rec})
+    if not exact:
+        raise AssertionError(f"swap_gain disagrees at n={n} {dt}")
+    return rec
+
+
+def model_kernel_phase(dev) -> dict:
+    """The model-stack kernels against their plain versions; the records
+    at the main path's shape and dtype go into the summary line."""
+    import torch
+    recs = {}
+    for dt in ("float32", "bfloat16"):
+        rec = check_flash(dev, dt, FLASH_MAIN, "kernels/model")
+        if dt == "float32":          # the model phase runs float32
+            recs["flash_attention"] = rec
+        torch.cuda.empty_cache()
+    check_flash(dev, "bfloat16", (1, 16, 16, 1024, 1024, 192),
+                "kernels/model")
+    for dt in ("float32", "bfloat16"):
+        rec = check_rmsnorm(dev, dt, *RMSNORM_MAIN, "kernels/model")
+        if dt == "float32":
+            recs["rmsnorm"] = rec
+    for dt in ("float64", "float32"):
+        rec = check_swap_gain(dev, dt, SWAP_GAIN_N, "kernels/model")
+        if dt == "float64":          # the refiner's default dtype
+            recs["swap_gain"] = rec
+    return recs
+
+
+def _count_path(names) -> dict:
+    """Add this run's launches of ``names`` to the main-path counts."""
+    from repro_torch.kernels import LAUNCHES, SHAPES
+    for name in names:
+        MAIN_PATH_LAUNCHES[name] += LAUNCHES[name]
+        keep_shape(name, SHAPES[name])
+    return {name: LAUNCHES[name] for name in names}
+
+
+def entry_point_phase(dev) -> None:
+    """rmsnorm and swap_gain driven once each through their entry points
+    (``impl="auto"`` on CUDA tensors), launch counts zeroed just before."""
+    import torch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.swap_gain.ops import swap_gain
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(RMSNORM_MAIN, generator=g, device=dev)
+    w = torch.ones(RMSNORM_MAIN[1], device=dev)
+    M = torch.rand((SWAP_GAIN_N, SWAP_GAIN_N), generator=g, device=dev,
+                   dtype=torch.float64)
+    M = M + M.T
+    contrib = (M * M).sum(-1)
+    i = torch.tensor([5], device=dev)
+    reset_launches()
+    out = rmsnorm(x, w)
+    gains = swap_gain(M, M, contrib, i)
+    torch.cuda.synchronize()
+    launches = _count_path(("rmsnorm", "swap_gain"))
+    ok = (bool(torch.isfinite(out).all()) and bool(torch.isfinite(gains)
+                                                   .all())
+          and all(n == 1 for n in launches.values()))
+    emit({"phase": "entry/rmsnorm+swap_gain", "launches": launches,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("an entry point did not launch its kernel")
+
+
+def model_phase(dev):
+    """smollm-135m, full width and depth, float32, NumPy-seeded weights:
+    the 2048-token forward through the flash kernel, held to the plain
+    version's forward and to the reference's logits.  Returns (model,
+    tokens, logits of the first 8 positions) for the decode phase."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_arch("smollm-135m")
+    t0 = time.perf_counter()
+    model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
+                                 device=dev)
+    toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
+    toks = toks.to(dev)
+    load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits = model(toks)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = _count_path(("flash_attention",))["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        model(toks)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        prof = profiled(lambda: model(toks), "model/smollm-135m/forward-2048")
+        plain = model(toks, impl="ref")
+        torch.cuda.synchronize()
+    err = float((logits - plain).abs().max())
+    plain_ok = bool(torch.allclose(logits, plain, atol=1e-4, rtol=1e-4))
+    del plain
+    finite = bool(torch.isfinite(logits).all())
+    summary = forward_summary(
+        logits[:, list(HELD_POSITIONS)].float().cpu().numpy())
+    ref_ok = forward_agrees(summary)
+    sum_rel = max(abs(s[1] - e[1]) / abs(e[1])
+                  for s, e in zip(summary, EXPECTED_FORWARD))
+    B, S = toks.shape
+    ok = (launches == cfg.n_layers and LAUNCHES["flash_attention"]
+          == 3 * cfg.n_layers and plain_ok and ref_ok and finite
+          and tuple(logits.shape) == (B, S, cfg.vocab))
+    emit({"phase": "model/smollm-135m/forward-2048", "dtype": "float32",
+          "batch": B, "seq": S, "layers": cfg.n_layers,
+          "load_s": load_s, "cold_s": cold, "warm_s": warm,
+          "prefill_tok_per_s": B * S / warm, "peak_mem_mb": peak / 2**20,
+          "flash_launches_per_forward": launches,
+          "max_abs_err_vs_plain": err, "plain_ok": plain_ok,
+          "summary": summary, "max_sum_rel_err_vs_reference": sum_rel,
+          "reference_ok": ref_ok, **prof, "ok": ok})
+    if not ok:
+        raise AssertionError("the smollm-135m forward failed its checks")
+    return model, toks, logits[:, :8].clone()
+
+
+def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
+    """``steps`` decode steps from empty caches, each held to the
+    forward's logits at the same position (atol = rtol = 1e-4); then the
+    same steps again, timed without the checks, and once more under the
+    profiler."""
+    import torch
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    B = toks.shape[0]
+    caches = init_cache(model.cfg, B, steps, device=model.device)
+    err, ok = 0.0, True
+    for t in range(steps):
+        got, caches = decode_step(model, caches, toks[:, t:t + 1], t)
+        ok &= bool(torch.allclose(got[:, 0], fwd_logits[:, t], atol=1e-4,
+                                  rtol=1e-4))
+        err = max(err, float((got[:, 0] - fwd_logits[:, t]).abs().max()))
+
+    def run():
+        c = init_cache(model.cfg, B, steps, device=model.device)
+        for t in range(steps):
+            decode_step(model, c, toks[:, t:t + 1], t)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    key = "model/smollm-135m/decode-8"
+    emit({"phase": key, "batch": B, "steps": steps, "s": wall,
+          "ms_per_step": wall / steps * 1e3, **profiled(run, key),
+          "max_abs_err_vs_forward": err, "ok": ok})
+    if not ok:
+        raise AssertionError("decode disagrees with the forward")
+
+
+def serve_phase() -> None:
+    """The port's serve driver with the reference's default arguments, on
+    ``cuda``: it must return 0; its printed times are read back."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len", "32",
+            "--gen", "16"]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    secs = [float(x) for x in re.findall(r"in ([0-9.]+)s", out)]
+    ok = rc == 0 and len(secs) == 2 and len(out.splitlines()) == 3
+    emit({"phase": "serve/smollm-135m", "argv": argv, "rc": rc,
+          "wall_s": wall, "prefill_s": secs[0] if ok else None,
+          "decode_s": secs[1] if ok else None,
+          "prefill_tok_per_s": 32 * 4 / secs[0] if ok and secs[0] else None,
+          "decode_tok_per_s": 16 * 4 / secs[1] if ok and secs[1] else None,
+          "output": out.splitlines(), "ok": ok})
+    if not ok:
+        raise AssertionError("the serve driver failed")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -437,10 +823,30 @@ def main() -> int:
         t0 = time.perf_counter()
         kernel_phase(dev)
         emit({"phase": "kernels/done", "s": time.perf_counter() - t0,
-              "checked": list(KERNELS)})
+              "checked": ["swap_select", "torus_hop", "fattree_hop"]})
     except Exception:                       # reported, and the run fails
         traceback.print_exc()
         failed.append("kernels")
+    model_recs = {}
+    try:
+        t0 = time.perf_counter()
+        model_recs = model_kernel_phase(dev)
+        entry_point_phase(dev)
+        emit({"phase": "kernels/model/done", "s": time.perf_counter() - t0})
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("kernels/model")
+    torch.cuda.empty_cache()
+    try:
+        model, toks, fwd_logits = model_phase(dev)
+        decode_phase(model, toks, fwd_logits)
+        del model, toks, fwd_logits
+        torch.cuda.empty_cache()
+        serve_phase()
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("model")
+    torch.cuda.empty_cache()
     for run in placement_phases():
         try:
             run()
@@ -457,6 +863,7 @@ def main() -> int:
         traceback.print_exc()
         failed.append("kernels/main-shape")
 
+    records.update(model_recs)
     summary = []
     for name, meta in KERNELS.items():
         rec = records.get(name, {})
@@ -468,7 +875,7 @@ def main() -> int:
                         "plain_ms": rec.get("plain_ms"),
                         "bound_ms": rec.get("bound_ms"),
                         "bound_by": rec.get("bound_by"),
-                        "library_ms": None})
+                        "library_ms": rec.get("library_ms")})
     emit({"kernels": summary})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -50,6 +50,22 @@ class BackendUnavailableError(RuntimeError):
     """Requested backend or device cannot be used here."""
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, checked: a CUDA device when no GPU
+    is visible raises :class:`BackendUnavailableError` (nothing quietly
+    runs on the CPU), and only ``cuda`` and ``cpu`` devices are taken."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise BackendUnavailableError(
+            f"the port targets {str(device)!r} but no CUDA device is "
+            f"visible; pass device='cpu' to run the plain PyTorch versions "
+            f"on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise BackendUnavailableError(
+            f"the port's device must be cuda or cpu, got {str(device)!r}")
+    return dev
+
+
 class NumpyBackend:
     """The vectorized NumPy kernels run as-is."""
 
@@ -78,15 +94,7 @@ class TorchBackend:
         if dtype not in ("float32", "float64"):
             raise ValueError(f"torch backend dtype must be float32|float64, "
                              f"got {dtype!r}")
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise BackendUnavailableError(
-                f"the torch placement backend targets {device!r} but no CUDA "
-                f"device is visible; pass device='cpu' to run the plain "
-                f"PyTorch kernels on the host")
-        if dev.type not in ("cuda", "cpu"):
-            raise BackendUnavailableError(
-                f"torch backend device must be cuda or cpu, got {device!r}")
+        dev = resolve_device(device)
         self.dtype = dtype
         self.device = dev
         # host ndarray -> device tensor, LRU by object identity.  The

@@ -1,25 +1,28 @@
-"""Carry placement inputs across from the reference's plain arrays.
+"""Carry inputs across from the reference's plain arrays.
 
 The reference package (``repro``) and this port each have their own
-``CommGraph``, ``ClusterState``, topologies and ``PlacementRequest``
-classes; the port imports nothing of ``repro``.  What the two share is
-data: guest matrices, torus extents or fat-tree arity, outage beliefs,
-straggler factors and lifecycle codes, all plain NumPy arrays or ints.
-These functions build the port's objects from that data, so a test can
-place the same job with both packages and compare the results.  There
-are no weights to load: the system has none.
+``CommGraph``, ``ClusterState``, topologies, ``PlacementRequest`` and
+model classes; the port imports nothing of ``repro``.  What the two share
+is data: guest matrices, torus extents or fat-tree arity, outage beliefs,
+straggler factors and lifecycle codes, all plain NumPy arrays or ints,
+and a model's parameters as a nested dict of NumPy arrays.  These
+functions build the port's objects from that data, so a test can place
+the same job, or run the same model, with both packages and compare the
+results.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from .core.comm_graph import CommGraph
 from .core.engine import PlacementRequest
 from .core.fattree import FatTreeTopology
 from .core.state import ClusterState
 from .core.topology import TorusTopology
+from .models.model import Transformer, param_leaves, schema
 
 
 def comm_graph(G_v: np.ndarray, G_m: Optional[np.ndarray] = None
@@ -75,3 +78,62 @@ def request(G_v: np.ndarray, G_m: Optional[np.ndarray] = None, *,
         topology=topology(torus_dims=torus_dims, fattree_k=fattree_k),
         state=state, p_f=p_f, available=available, straggler=straggler,
         metric=metric, seed=seed)
+
+
+def model_params(cfg, params_np: dict, *, device="cuda",
+                 dtype: torch.dtype = torch.float32) -> Transformer:
+    """A :class:`~repro_torch.models.model.Transformer` holding the
+    reference's parameters.
+
+    ``params_np`` is the reference's nested parameter dict as NumPy
+    arrays, for example ``jax.tree.map(np.asarray, repro.models.model.
+    init(cfg, key))``, with the blocks' leaves stacked over a leading
+    layer axis; layer ``l`` of the module gets slice ``[l]`` of each.
+    Every leaf of the schema must be there at its shape, and nothing
+    else.  The tensors are made on ``device`` in ``dtype``."""
+    model = Transformer(cfg, device=device, dtype=dtype)
+    params = dict(model.named_parameters())
+    seen = set()
+    with torch.no_grad():
+        for name, path, layer, d in param_leaves(cfg):
+            node = params_np
+            for key in path:
+                node = node[key]
+            arr = np.asarray(node)
+            if arr.shape != d.shape:
+                raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
+                                 f"the schema says {d.shape}")
+            seen.add(path)
+            params[name].copy_(torch.tensor(
+                arr if layer is None else arr[layer]))
+    given = set()
+    for k, v in params_np.items():
+        given |= {(k, kk) for kk in v} if isinstance(v, dict) else {(k,)}
+    extra = sorted("/".join(p) for p in given - seen)
+    if extra:
+        raise KeyError(f"parameters the port does not know: {extra}")
+    return model
+
+
+def seeded_params(cfg, seed: int = 0) -> dict:
+    """Parameters of a dense model drawn with NumPy, in the reference's
+    layout (nested dict, blocks stacked over layers), float32.
+
+    Each schema leaf in the schema's order (the blocks' leaves in their
+    own order after the top-level ones) is ones, zeros, or
+    ``default_rng(seed)`` standard normals times its scale.  Both packages
+    can run the same weights from it: the reference takes the dict as it
+    is, the port through :func:`model_params`."""
+    rng = np.random.default_rng(seed)
+
+    def draw(d):
+        if d.init == "zeros":
+            return np.zeros(d.shape, np.float32)
+        if d.init == "ones":
+            return np.ones(d.shape, np.float32)
+        return rng.standard_normal(d.shape, dtype=np.float32) \
+            * np.float32(d.scale)
+
+    return {k: ({kk: draw(dd) for kk, dd in d.items()}
+                if isinstance(d, dict) else draw(d))
+            for k, d in schema(cfg).items()}

@@ -7,11 +7,23 @@ one where it launches its CUDA kernel and nowhere else, so a run can show
 that the main path went through the kernels: zero the counts with
 :func:`reset_launches`, drive the path, read them back.  ``SHAPES`` keeps,
 beside each count, the largest shape the kernel was launched at since the
-last reset: (B, n) for ``swap_select``, (B, m, k) for the hop kernels.
+last reset: (B, n) for ``swap_select``, (B, m, k) for the hop kernels,
+(n,) for ``swap_gain``, (B, H, Hkv, Sq, Sk, Dh) for ``flash_attention``
+and (rows, D) for ``rmsnorm``.
+
+Every wrapper chooses by the device of the tensors it is handed
+(:func:`use_kernel`): ``impl="auto"`` launches the CUDA kernel for tensors
+on a GPU and runs the plain version for tensors on the CPU;
+``impl="kernel"`` insists on the kernel (and raises for CPU tensors);
+``impl="ref"`` runs the plain version on any device.  A kernel that fails
+to build or launch raises; nothing falls back.
 """
 import math
 
-LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0}
+import torch
+
+LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
+            "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0}
 SHAPES: dict = {name: None for name in LAUNCHES}
 
 
@@ -27,3 +39,27 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         SHAPES[name] = None
+
+
+def use_kernel(impl: str, t: torch.Tensor) -> bool:
+    """Resolve ``impl`` for a tensor: True = CUDA kernel, False = plain."""
+    if impl == "auto":
+        return t.device.type == "cuda"
+    if impl == "kernel":
+        if t.device.type != "cuda":
+            raise ValueError("the CUDA kernel needs tensors on a CUDA "
+                             f"device, got {t.device}")
+        return True
+    if impl == "ref":
+        return False
+    raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
+
+
+def launch(lib, fn, name: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn(*args, stream)`` of ``lib`` on
+    ``device``'s current stream; raise when it returns a CUDA error."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.error_string(err).decode()} ({err})")

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Each ``.cu`` source in this package has a plain C interface (no PyTorch
-headers), so one ``nvcc`` call per source takes seconds.  Sources are
+headers) and exports ``error_string`` for the CUDA error codes its entry
+points return, so one ``nvcc`` call per source takes seconds.  Sources are
 compiled at first use for ``sm_90a`` under a name that carries a digest of
 the source and the flags, so an edited source is never served a stale
 library.  The libraries go to ``$REPRO_TORCH_BUILD_DIR`` when it is
@@ -44,6 +45,8 @@ BUILD_DIR = _build_dir()
 SOURCES = {
     "hop_dist": _PKG / "hop_dist" / "hop_dist.cu",
     "swap_gain": _PKG / "swap_gain" / "swap_select.cu",
+    "flash_attention": _PKG / "flash_attention" / "flash_attention.cu",
+    "rmsnorm": _PKG / "rmsnorm" / "rmsnorm.cu",
 }
 
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,5 +137,8 @@ def load(name: str) -> ctypes.CDLL:
             st = _start(name)
             if st is not None:
                 _finish(name, st)
-            lib = _LIBS[name] = ctypes.CDLL(str(_so_path(name)))
+            lib = ctypes.CDLL(str(_so_path(name)))
+            lib.error_string.argtypes = [ctypes.c_int]
+            lib.error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib

@@ -1,0 +1,78 @@
+"""Flash attention — plain PyTorch version (online softmax, double-chunked).
+
+The oracle of the CUDA kernel in ``flash_attention.cu`` and the CPU path
+of :mod:`repro_torch.kernels.flash_attention.ops`.  It follows the
+reference package's blocked algorithm step for step: queries in blocks of
+``q_block``, keys in blocks of ``kv_block``, both padded to whole blocks,
+a running max ``m``, denominator ``l`` and accumulator ``acc`` in float32,
+and the finite mask value ``NEG_INF``.  Memory is O(S * block) instead of
+the O(S^2) score matrix.
+
+Contract (shared with the kernel and ``ops.py``):
+  q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh), GQA via H % Hkv == 0;
+  causal masking aligns the *ends* of q and k (query i attends to keys
+  j <= i + (Sk - Sq)).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, q_block: int = 512,
+                        kv_block: int = 1024) -> torch.Tensor:
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dtype = q.dtype
+    groups = H // Hkv
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=1)
+        v = v.repeat_interleave(groups, dim=1)
+
+    q_block = min(q_block, Sq)
+    kv_block = min(kv_block, Sk)
+    # pad to block multiples
+    pq = (-Sq) % q_block
+    pk = (-Sk) % kv_block
+    q = F.pad(q, (0, 0, 0, pq)).float()
+    k = F.pad(k, (0, 0, 0, pk)).float()
+    v = F.pad(v, (0, 0, 0, pk)).float()
+    nq = q.shape[2] // q_block
+    nk = k.shape[2] // kv_block
+    offset = Sk - Sq  # causal alignment
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+
+    out = torch.empty((B, H, nq * q_block, Dh), dtype=torch.float32,
+                      device=dev)
+    for qi in range(nq):
+        qc = q[:, :, qi * q_block:(qi + 1) * q_block]
+        acc = torch.zeros_like(qc)
+        m = torch.full(qc.shape[:3], NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros(qc.shape[:3], dtype=torch.float32, device=dev)
+        qpos = qi * q_block + torch.arange(q_block, device=dev) + offset
+        for kj in range(nk):
+            kc = k[:, :, kj * kv_block:(kj + 1) * kv_block]
+            vc = v[:, :, kj * kv_block:(kj + 1) * kv_block]
+            s = torch.einsum("bhqd,bhkd->bhqk", qc, kc) * scale
+            kpos = kj * kv_block + torch.arange(kv_block, device=dev)
+            mask = kpos[None, :] < Sk                   # key padding
+            if causal:
+                mask = mask & (kpos[None, :] <= qpos[:, None])
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
+                                                       p, vc)
+            m = m_new
+        out[:, :, qi * q_block:(qi + 1) * q_block] = \
+            acc / torch.clamp(l, min=1e-30)[..., None]
+    return out[:, :, :Sq].to(dtype)

@@ -28,7 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build, count_launch
+from .. import _build, count_launch, launch, use_kernel
 from .ref import fattree_hop_pairs_ref, torus_hop_pairs_ref
 
 
@@ -91,24 +91,8 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
             fn.restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def use_kernel(impl: str, t: torch.Tensor) -> bool:
-    """Resolve ``impl`` for a tensor: True = CUDA kernel, False = plain."""
-    if impl == "auto":
-        return t.device.type == "cuda"
-    if impl == "kernel":
-        if t.device.type != "cuda":
-            raise ValueError("the CUDA kernel needs tensors on a CUDA "
-                             f"device, got {t.device}")
-        return True
-    if impl == "ref":
-        return False
-    raise ValueError(f"impl must be auto|kernel|ref, got {impl!r}")
 
 
 def _as_batched(cu: torch.Tensor, cv: torch.Tensor, width: int):
@@ -133,12 +117,6 @@ def _as_batched(cu: torch.Tensor, cv: torch.Tensor, width: int):
     return cu, cv
 
 
-def _check(lib, err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.error_string(err).decode()} ({err})")
-
-
 def torus_hop(cu: torch.Tensor, cv: torch.Tensor, dims, *,
               impl: str = "auto") -> torch.Tensor:
     """All-pairs torus hops: (B, m, nd), (B, k, nd) -> (B, m, k), or the
@@ -156,11 +134,8 @@ def torus_hop(cu: torch.Tensor, cv: torch.Tensor, dims, *,
     lib = _lib()
     fn = lib.torus_hop_f64 if cu3.dtype == torch.float64 else lib.torus_hop_f32
     d = [float(x) for x in dims] + [0.0] * (4 - len(dims))
-    with torch.cuda.device(cu3.device):
-        stream = torch.cuda.current_stream(cu3.device).cuda_stream
-        err = fn(cu3.data_ptr(), cv3.data_ptr(), out.data_ptr(), B, m, k,
-                 len(dims), *d, stream)
-    _check(lib, err, "torus_hop")
+    launch(lib, fn, "torus_hop", cu3.device, cu3.data_ptr(), cv3.data_ptr(),
+           out.data_ptr(), B, m, k, len(dims), *d)
     count_launch("torus_hop", (B, m, k))
     return out if batched else out[0]
 
@@ -179,10 +154,7 @@ def fattree_hop(cu: torch.Tensor, cv: torch.Tensor, *,
     lib = _lib()
     fn = (lib.fattree_hop_f64 if cu3.dtype == torch.float64
           else lib.fattree_hop_f32)
-    with torch.cuda.device(cu3.device):
-        stream = torch.cuda.current_stream(cu3.device).cuda_stream
-        err = fn(cu3.data_ptr(), cv3.data_ptr(), out.data_ptr(), B, m, k,
-                 stream)
-    _check(lib, err, "fattree_hop")
+    launch(lib, fn, "fattree_hop", cu3.device, cu3.data_ptr(),
+           cv3.data_ptr(), out.data_ptr(), B, m, k)
     count_launch("fattree_hop", (B, m, k))
     return out if batched else out[0]

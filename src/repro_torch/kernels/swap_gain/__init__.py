@@ -1,1 +1,2 @@
-"""The fused swap-select step of the pairwise-swap refiner."""
+"""Swap gains of the pairwise-swap refiner: the gains row and the fused
+select step."""

@@ -1,6 +1,7 @@
-// Fused swap-select step of the pairwise-swap refiner, on Hopper.
+// Swap gains of the pairwise-swap refiner, on Hopper: the fused select
+// step and the unfused gains row.
 //
-// Replaces the Pallas TPU kernel `swap_select_tpu`
+// Replaces the Pallas TPU kernels `swap_select_tpu` and `swap_gain_tpu`
 // (src/repro/kernels/swap_gain/kernel.py).  For every candidate b of a
 // batch and its mover i = iv[b] it evaluates the dense gains row
 //
@@ -32,6 +33,12 @@
 // No float atomics are used, so the result does not depend on block
 // scheduling.  The wrapper allocates the partial buffers; the kernel
 // allocates nothing.
+//
+// swap_gain_row is the unfused form (`swap_gain_tpu`): one (n, n) matrix
+// pair and one mover, the whole (n,) gains row written out, unmasked.  It
+// is bound by the same one read of M and G (2 n^2 values) and uses phase
+// 1's grid and its arithmetic, `gain_entry`, so the two cannot drift
+// apart.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,6 +64,29 @@ __device__ __forceinline__ bool beats(T v, int64_t j, T best, int64_t best_j) {
   return v > best || (v == best && j < best_j);
 }
 
+// Gains row entry g[c] for mover i of one candidate (its M row block Mb and
+// contrib row cb), reduced across the warp: every lane calls it with its
+// own lane index and gets the same value (the butterfly adds the same
+// pairs on every lane).
+template <typename T>
+__device__ __forceinline__ T gain_entry(const T* __restrict__ Mb,
+                                        const T* __restrict__ G,
+                                        const T* __restrict__ cb, int64_t i,
+                                        int64_t c, int64_t n, int lane) {
+  const T* Mi = Mb + i * n;
+  const T* Gi = G + i * n;
+  const T* Mc = Mb + c * n;
+  const T* Gc = G + c * n;
+  T a = T(0), bb = T(0);
+  for (int64_t r = lane; r < n; r += 32) {
+    a += Mc[r] * Gi[r];    // (M @ G[i])[c]
+    bb += Gc[r] * Mi[r];   // (G @ M[i])[c]
+  }
+  a = warp_sum(a);
+  bb = warp_sum(bb);
+  return cb[i] + cb[c] - T(2) * Gi[c] * Mi[c] - a - bb;
+}
+
 template <typename T>
 __global__ void swap_select_partial(const T* __restrict__ M,
                                     const T* __restrict__ G,
@@ -73,22 +103,9 @@ __global__ void swap_select_partial(const T* __restrict__ M,
   const int64_t i = iv[b];
   const int64_t n_valid = n_valid_p[0];
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-  const T* Mb = M + b * n * n;
-  const T* Mi = Mb + i * n;
-  const T* Gi = G + i * n;
   T g = T(-INFINITY);
   if (c < n) {
-    const T* Mc = Mb + c * n;
-    const T* Gc = G + c * n;
-    T a = T(0), bb = T(0);
-    for (int64_t r = lane; r < n; r += 32) {
-      a += Mc[r] * Gi[r];    // (M @ G[i])[c]
-      bb += Gc[r] * Mi[r];   // (G @ M[i])[c]
-    }
-    a = warp_sum(a);
-    bb = warp_sum(bb);
-    g = contrib[b * n + i] + contrib[b * n + c] - T(2) * Gi[c] * Mi[c] - a -
-        bb;
+    g = gain_entry(M + b * n * n, G, contrib + b * n, i, c, n, lane);
     if (c == i) g = T(0);
     if (c >= n_valid) g = T(-INFINITY);
   }
@@ -152,6 +169,33 @@ __global__ void swap_select_final(const T* __restrict__ part_v,
   }
 }
 
+// Unfused gains row: grid ceil(n / 8), one warp per column c.
+template <typename T>
+__global__ void swap_gain_row(const T* __restrict__ M,
+                              const T* __restrict__ G,
+                              const T* __restrict__ contrib,
+                              const int64_t* __restrict__ iv,
+                              T* __restrict__ out, int64_t n) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (c >= n) return;
+  const T g = gain_entry(M, G, contrib, iv[0], c, n, lane);
+  if (lane == 0) out[c] = g;
+}
+
+template <typename T>
+int launch_gain(const void* M, const void* G, const void* contrib,
+                const void* iv, void* out, int64_t n, void* stream) {
+  if (n == 0) return 0;
+  swap_gain_row<T><<<static_cast<unsigned>((n + kWarps - 1) / kWarps),
+                     kThreads1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(M), static_cast<const T*>(G),
+      static_cast<const T*>(contrib), static_cast<const int64_t*>(iv),
+      static_cast<T*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* M, const void* G, const void* contrib, const void* iv,
            const void* n_valid, void* part_v, void* part_j, void* gain,
@@ -201,6 +245,18 @@ int swap_select_f64(const void* M, const void* G, const void* contrib,
                     void* stream) {
   return launch<double>(M, G, contrib, iv, n_valid, part_v, part_j, gain, j,
                         B, n, stream);
+}
+
+// Unfused gains row for mover iv[0] (a one-element int64 device tensor):
+// M, G (n, n), contrib (n,) -> out (n,).
+int swap_gain_f32(const void* M, const void* G, const void* contrib,
+                  const void* iv, void* out, int64_t n, void* stream) {
+  return launch_gain<float>(M, G, contrib, iv, out, n, stream);
+}
+
+int swap_gain_f64(const void* M, const void* G, const void* contrib,
+                  const void* iv, void* out, int64_t n, void* stream) {
+  return launch_gain<double>(M, G, contrib, iv, out, n, stream);
 }
 
 }  // extern "C"

@@ -1,0 +1,196 @@
+"""Core NN building blocks of the dense model: norms, RoPE, GQA attention
+and the MLP, in PyTorch.
+
+The functions take a block's parameters as attributes of ``p`` (a
+:class:`~repro_torch.models.model.DenseBlock`), in the reference's
+orientation: ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo (h, hd,
+d)``, ``w_up``/``w_gate (d, f)``, ``w_down (f, d)``.  ``ParamDef`` schemas
+describe every parameter (shape, logical axes, init kind and scale) as in
+the reference, so a model built here and one built there line up name for
+name.
+
+Conventions:
+  activations  (B, S, D)  — batch, sequence, d_model
+  GQA caches   (B, Hkv, S, Dh)
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
+
+# sequences at or above this length use the flash (online-softmax) attention
+# path: O(S * block) memory instead of the O(S^2) score matrix
+FLASH_MIN_SEQ = 2048
+
+# --------------------------------------------------------------------------
+# param schema
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    axes: tuple              # logical axis name per dim (None = unsharded)
+    init: str = "normal"     # normal | zeros | ones
+    scale: float = 0.02
+    dtype: object = None     # None = container default; else pinned (e.g.
+                             # f32 SSM states that must not decay in bf16)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in rank")
+
+
+def init_(t: torch.Tensor, d: ParamDef,
+          generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` in place as ``d`` says: zeros, ones, or normals of
+    standard deviation ``d.scale`` drawn from ``generator`` (which lives
+    on ``t``'s device)."""
+    if d.init == "zeros":
+        return t.zero_()
+    if d.init == "ones":
+        return t.fill_(1.0)
+    return t.normal_(0.0, d.scale, generator=generator)
+
+
+# --------------------------------------------------------------------------
+# norms / activations / rope
+# --------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+    """The reference's rounding: ``rsqrt(var + eps)`` goes to x's dtype
+    before the multiply."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
+
+
+def act_fn(name: str) -> Callable:
+    if name == "gelu":   # jax.nn.gelu's default is the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":  # squared ReLU (nemotron-4)
+        return lambda x: torch.relu(x).square()
+    if name in ("silu", "silu_glu"):
+        return F.silu
+    raise ValueError(name)
+
+
+def rope_freqs(head_dim: int, theta: float, positions: torch.Tensor):
+    """(S,) positions -> cos/sin of shape (S, head_dim // 2), float32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device) / head_dim))
+    ang = positions.float()[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, Dh); cos/sin: (S, Dh//2). Rotate-half convention."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention (GQA)
+# --------------------------------------------------------------------------
+
+def gqa_schema(cfg: ModelConfig, layers: int) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    L = (layers,)
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "wq": ParamDef(L + (d, h, hd), ("layers", "embed", "heads", None)),
+        "wk": ParamDef(L + (d, kv, hd), ("layers", "embed", "kv_heads", None)),
+        "wv": ParamDef(L + (d, kv, hd), ("layers", "embed", "kv_heads", None)),
+        "wo": ParamDef(L + (h, hd, d), ("layers", "heads", None, "embed"),
+                       scale=out_scale),
+    }
+
+
+def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
+                  cache: Optional[tuple] = None, cache_pos: int = 0,
+                  causal: bool = True, impl: str = "auto"):
+    """Grouped-query attention; returns (out, new_cache).
+
+    With ``cache`` — ``(k, v)``, each (B, Hkv, S_max, Dh) — the new keys
+    and values are written into it *in place* at ``cache_pos`` (index
+    assignment where the reference uses ``dynamic_update_slice``), and the
+    same two tensors come back as the new cache.  Without a cache, a
+    causal sequence of ``FLASH_MIN_SEQ`` or more tokens runs
+    :func:`~repro_torch.kernels.flash_attention.ops.flash_attention`
+    (``impl`` picks its kernel or plain version).
+    """
+    B, S, D = x.shape
+    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+    k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
+    v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    new_cache = None
+    if cache is not None:
+        ck, cv = cache
+        ck[:, :, cache_pos:cache_pos + S] = k.to(ck.dtype)
+        cv[:, :, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        k, v = ck, cv
+        new_cache = (ck, cv)
+        causal = False  # masking handled by length below
+
+    if cache is None and causal and S >= FLASH_MIN_SEQ:
+        # long-context prefill/train: O(S*block) online-softmax attention
+        out = flash_attention(q, k, v, causal=True, impl=impl)
+        return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
+
+    groups = n_heads // max(k.shape[1], 1)
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=1)
+        v = v.repeat_interleave(groups, dim=1)
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhsk,bhtk->bhst", q, k).float() * scale
+    if cache is not None:
+        # decode: mask positions beyond the write point
+        t = torch.arange(k.shape[2], device=x.device)
+        qpos = cache_pos + torch.arange(S, device=x.device)
+        scores = torch.where(t[None, :] <= qpos[:, None], scores, -1e30)
+    elif causal:
+        t = torch.arange(S, device=x.device)
+        scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhst,bhtk->bhsk", probs, v)
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def mlp_schema(cfg: ModelConfig, layers: int, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    L = (layers,)
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    sch = {
+        "w_up": ParamDef(L + (d, f), ("layers", "embed", "mlp")),
+        "w_down": ParamDef(L + (f, d), ("layers", "mlp", "embed"),
+                           scale=out_scale),
+    }
+    if cfg.act == "silu_glu":
+        sch["w_gate"] = ParamDef(L + (d, f), ("layers", "embed", "mlp"))
+    return sch
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p.w_up
+    if p.w_gate is not None:
+        h = h * act_fn(act)(x @ p.w_gate)
+    else:
+        h = act_fn(act)(h)
+    return h @ p.w_down

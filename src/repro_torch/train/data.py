@@ -1,0 +1,66 @@
+"""Deterministic synthetic data pipeline.
+
+Generates reproducible token streams (seeded per step, host-sliceable for
+multi-process data loading) with enough structure that the loss actually
+falls: a k-gram Markov chain over the vocabulary, so next-token prediction
+is learnable.  The stream is drawn with NumPy, so the same seed gives the
+same tokens as the reference package's ``SyntheticDataset``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.backend import resolve_device
+
+
+@dataclasses.dataclass
+class SyntheticDataset:
+    """Markov-chain token stream; next token = f(prev token) + noise."""
+
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    noise: float = 0.1
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # deterministic successor table: makes sequences predictable
+        self._succ = rng.permutation(self.vocab)
+
+    def batch(self, step: int) -> dict:
+        """``tokens`` and ``labels``, (B, S) int32 tensors on the host."""
+        rng = np.random.default_rng((self.seed, step))
+        B, S = self.global_batch, self.seq_len
+        toks = np.empty((B, S + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, B)
+        noise_mask = rng.random((B, S)) < self.noise
+        noise_tok = rng.integers(0, self.vocab, (B, S))
+        for t in range(S):
+            nxt = self._succ[toks[:, t]]
+            toks[:, t + 1] = np.where(noise_mask[:, t], noise_tok[:, t], nxt)
+        return {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+                "labels": torch.from_numpy(toks[:, 1:].copy())}
+
+
+def extra_inputs(cfg: ModelConfig, batch_size: int,
+                 dtype: torch.dtype = torch.float32,
+                 seq_len: int | None = None, device="cuda") -> dict:
+    """Modality-frontend STUBS (assignment): precomputed patch / frame
+    embeddings for [vlm] / [audio] archs, zeros on ``device``."""
+    out = {}
+    if cfg.family == "vlm":
+        shp = (batch_size, cfg.n_vision_tokens, cfg.d_model)
+        out["vision_embed"] = torch.zeros(shp, dtype=dtype,
+                                          device=resolve_device(device))
+    if cfg.family == "encdec":
+        # speech frames scale with the text length when not pinned
+        src = cfg.n_audio_frames or seq_len or 512
+        shp = (batch_size, src, cfg.d_model)
+        out["enc_embed"] = torch.zeros(shp, dtype=dtype,
+                                       device=resolve_device(device))
+    return out

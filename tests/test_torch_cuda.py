@@ -7,16 +7,22 @@ the ``cuda`` marker and skip elsewhere.  On a GPU machine run them with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The module imports neither JAX nor the reference package, so it runs on
-a machine that has only PyTorch.  Each kernel is held exactly equal to
-its plain PyTorch version (integer-valued inputs), and each refine branch
-of a placement on the card must return the placement the plain versions
-return on the CPU, having launched the kernel of its branch.
+a machine that has only PyTorch.  The placement kernels are held exactly
+equal to their plain PyTorch versions (integer-valued inputs), and each
+refine branch of a placement on the card must return the placement the
+plain versions return on the CPU, having launched the kernel of its
+branch.  The attention and normalisation kernels are held to their plain
+versions within the reference's kernel-test tolerances (2e-5 in float32,
+2e-2 in bfloat16), and the model's forward through the flash kernel to
+its forward through the plain version within 1e-4.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import reduced  # noqa: E402
+from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core.engine import (PlacementEngine,  # noqa: E402
                                      PlacementRequest)
 from repro_torch.core.fattree import FatTreeTopology  # noqa: E402
@@ -25,8 +31,18 @@ from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.hop_dist import ops as hop_ops  # noqa: E402
 from repro_torch.kernels.hop_dist.ref import (  # noqa: E402
     fattree_hop_pairs_ref, torus_hop_pairs_ref)
-from repro_torch.kernels.swap_gain.ops import swap_select  # noqa: E402
-from repro_torch.kernels.swap_gain.ref import swap_select_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
+                                               swap_select)
+from repro_torch.kernels.swap_gain.ref import (swap_gain_ref,  # noqa: E402
+                                               swap_select_ref)
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.workloads.patterns import (alltoall_heavy,  # noqa: E402
                                             npb_dt_like)
 
@@ -132,3 +148,94 @@ def test_placement_on_card_equals_cpu(cuda_device, cell, need):
     assert card.hop_bytes == cpu.hop_bytes
     if need is not None:
         assert LAUNCHES[need] > 0
+
+
+# ------------------------------------------------ model-stack kernels
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+FLASH_SHAPES = [
+    (1, 2, 2, 64, 64, 32, True),
+    (1, 4, 2, 2048, 2048, 16, True),  # the reduced configs' head dim
+    (2, 4, 2, 96, 96, 64, True),      # GQA, padding
+    (1, 4, 1, 32, 128, 64, True),     # Sq < Sk: the end-aligned diagonal
+    (2, 2, 2, 64, 64, 128, False),    # non-causal
+    (1, 8, 4, 200, 200, 64, True),    # ragged tail
+    (1, 9, 3, 128, 128, 64, True),    # smollm's 9 heads over 3 KV heads
+    (1, 9, 3, 2050, 2050, 64, True),  # ragged past the model's S = 2048
+    (1, 2, 1, 70, 300, 96, True),     # Sq < Sk across several key tiles
+    (1, 4, 2, 130, 130, 128, False),
+    (1, 2, 2, 100, 100, 192, True),   # MLA prefill head dims
+    (1, 2, 1, 65, 190, 256, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda_device, B, H, Hkv, Sq, Sk, Dh,
+                                    causal, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device
+                           ).to(dtype)
+               for shape in ((B, H, Sq, Dh), (B, Hkv, Sk, Dh),
+                             (B, Hkv, Sk, Dh)))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal, impl="kernel")
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_flash_kernel_refuses_grad(cuda_device):
+    q = torch.randn(1, 2, 8, 32, device=cuda_device, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, impl="kernel")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (4096, 576),
+                                   (5, 1000)])
+def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn(shape[-1], generator=g, device=cuda_device)
+         + 1.0).to(dtype)
+    got = rmsnorm(x, w, impl="kernel")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), rmsnorm_ref(x, w).float(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [16, 200, 1024])
+def test_swap_gain_kernel_equals_plain(cuda_device, dtype, n):
+    M, G, contrib = (torch.tensor(a, dtype=dtype, device=cuda_device)
+                     for a in _select_inputs(n, B=1))
+    for i in (0, n // 3, n - 1):
+        iv = torch.tensor([i], device=cuda_device)
+        got = swap_gain(M[0], G, contrib[0], iv, impl="kernel")
+        want = swap_gain_ref(M, G, contrib, iv)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [64, 2048])
+def test_forward_kernel_matches_plain(cuda_device, S):
+    """The reduced model through the flash kernel (S = 2048) against the
+    same model through the plain version; S = 64 runs neither."""
+    cfg = reduced(get_arch("smollm-135m"))
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, S), device=cuda_device)
+    reset_launches()
+    with torch.inference_mode():
+        got = model(toks, impl="kernel")
+        launched = LAUNCHES["flash_attention"]
+        want = model(toks, impl="ref")
+    assert launched == (cfg.n_layers if S >= 2048 else 0)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_serve_main_on_card(cuda_device, capsys):
+    assert serve.main(["--reduced", "--batch", "2", "--prompt-len", "8",
+                       "--gen", "4"]) == 0
+    assert capsys.readouterr().out.count("\n") == 3

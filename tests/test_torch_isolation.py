@@ -45,6 +45,11 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.core.mapping_torch\n"
         "import repro_torch.kernels.hop_dist.ops\n"
         "import repro_torch.kernels.swap_gain.ops\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.rmsnorm.ops\n"
+        "import repro_torch.models.model, repro_torch.serve.decode\n"
+        "import repro_torch.launch.serve, repro_torch.train.data\n"
+        "import repro_torch.configs.registry\n"
         "import repro_torch.workloads\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -140,3 +145,32 @@ def test_interop_round_trip():
     assert req2.available_ids.tolist() == [0, 2, 3]
     assert req2.p_f.tolist() == [0.0, 1.0, 0.0, 0.0]
     assert interop.topology(fattree_k=4).n_nodes == 16
+
+
+@pytest.mark.parametrize("entry", ["Transformer", "init", "init_cache",
+                                   "serve_main", "extra_inputs"])
+def test_model_entry_points_target_the_card(monkeypatch, entry):
+    """The model, its caches and the serve driver are made on ``cuda``
+    unless the caller asks for the CPU: without a GPU they raise, and
+    nothing is allocated on the host to be moved later."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import backend
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train.data import extra_inputs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("smollm-135m"))
+    calls = {
+        "Transformer": lambda: model.Transformer(cfg),
+        "init": lambda: model.init(cfg, seed=0),
+        "init_cache": lambda: init_cache(cfg, 1, 8),
+        "serve_main": lambda: serve.main(["--reduced", "--gen", "1",
+                                          "--prompt-len", "2"]),
+        "extra_inputs": lambda: extra_inputs(
+            reduced(get_arch("llama-3.2-vision-11b")), 1),
+    }
+    with pytest.raises(backend.BackendUnavailableError):
+        calls[entry]()

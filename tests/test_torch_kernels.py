@@ -3,9 +3,11 @@
 Each plain PyTorch version in ``repro_torch.kernels`` (the CPU path of
 its ``ops.py`` wrapper, and the oracle the CUDA kernel is held to on the
 card) is checked against the reference's Pallas kernel run in interpret
-mode and against the NumPy all-pairs functions.  Inputs are float32 with
-integer values, so every implementation computes exact results and the
-comparisons are exact equality.  The CUDA kernels themselves run only on
+mode and against the NumPy all-pairs functions.  Where the inputs are
+integer-valued every implementation computes exact results and the
+comparisons are exact equality; the attention and normalisation kernels
+are held within the reference's own kernel-test tolerances.  The CUDA
+kernels themselves run only on
 a GPU: ``tests/test_torch_cuda.py`` holds them against the plain versions
 there.
 """
@@ -18,15 +20,28 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_tpu)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref as jax_flash_ref)
 from repro.kernels.hop_dist.kernel import (fattree_hop_tpu,  # noqa: E402
                                            torus_hop_tpu)
-from repro.kernels.swap_gain.kernel import swap_select_tpu  # noqa: E402
+from repro.kernels.rmsnorm.kernel import rmsnorm_tpu  # noqa: E402
+from repro.kernels.swap_gain.kernel import (swap_gain_tpu,  # noqa: E402
+                                            swap_select_tpu)
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
 from repro_torch.kernels.hop_dist import ops as hop_ops  # noqa: E402
 from repro_torch.kernels.hop_dist.ref import (  # noqa: E402
     fattree_hop_pairs_ref, torus_hop_pairs_ref)
-from repro_torch.kernels.swap_gain.ops import swap_select  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
+                                               swap_select)
 from repro_torch.kernels.swap_gain.ref import (GAIN_EPS,  # noqa: E402
                                                swap_select_ref)
 
@@ -202,7 +217,8 @@ def test_cpu_tensors_run_plain_version_without_launching():
     M, G, contrib = _select_inputs(8, B=1)
     swap_select(torch.from_numpy(M), torch.from_numpy(G),
                 torch.from_numpy(contrib), torch.tensor([0]), 8)
-    assert LAUNCHES == {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0}
+    assert LAUNCHES == {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
+                        "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0}
 
 
 def test_kernel_impl_refuses_cpu_tensors():
@@ -258,3 +274,142 @@ def test_build_dir_choice(monkeypatch, tmp_path):
         / "torch_ext"
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "mine"))
     assert _build._build_dir() == tmp_path / "mine"
+
+
+# ------------------------------------------------------------ swap_gain
+
+# the reference's kernel-test tolerances (tests/test_kernels.py TOL)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _gain_inputs(n, integer, seed=0):
+    rng = np.random.default_rng(seed)
+    if integer:
+        A = rng.integers(0, 7, (n, n)).astype(np.float64)
+        S = (rng.integers(0, 5, (n, n))
+             * (rng.random((n, n)) < 0.3)).astype(np.float64)
+    else:
+        A, S = rng.random((n, n)), rng.random((n, n)) * (
+            rng.random((n, n)) < 0.2)
+    M, G = A + A.T, S + S.T
+    return M, G, (G * M).sum(1)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("n,block_rows", [(64, 64), (200, 64), (256, 128)])
+def test_swap_gain_matches_pallas_f64(n, block_rows, integer):
+    """float64: exact with integer-valued inputs, rtol 1e-12 otherwise."""
+    M, G, contrib = _gain_inputs(n, integer)
+    for i in (0, n // 2, n - 1):
+        got = swap_gain(torch.from_numpy(M), torch.from_numpy(G),
+                        torch.from_numpy(contrib), i)
+        assert got.dtype == torch.float64 and got.shape == (n,)
+        with jax.enable_x64(True):
+            want = np.asarray(swap_gain_tpu(
+                jnp.asarray(M), jnp.asarray(G), jnp.asarray(contrib),
+                jnp.int32(i), block_rows=block_rows, interpret=True))
+        assert want.dtype == np.float64
+        if integer:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                                       atol=1e-12 * np.abs(want).max())
+
+
+def test_swap_gain_row_feeds_swap_select():
+    """The unfused row, masked and reduced, is the fused select's answer."""
+    M, G, contrib = _gain_inputs(48, True, seed=2)
+    Mt, Gt, ct = (torch.from_numpy(a) for a in (M, G, contrib))
+    for i in (0, 17, 47):
+        g = swap_gain(Mt, Gt, ct, torch.tensor(i))
+        g[i] = 0.0
+        gain, j = swap_select(Mt[None], Gt, ct[None], torch.tensor([i]), 48)
+        assert float(gain[0]) == float(g.max())
+        assert int(j[0]) == (int(g.argmax()) if g.max() > GAIN_EPS else i)
+
+
+# ---------------------------------------------------------------- flash
+FLASH_CASES = [
+    (1, 2, 2, 64, 64, 32, True),
+    (2, 4, 2, 96, 96, 64, True),      # GQA + non-pow2 seq (padding)
+    (1, 4, 1, 32, 128, 64, True),     # decode-ish: Sq < Sk, MQA
+    (2, 2, 2, 64, 64, 128, False),    # non-causal (cross attention)
+    (1, 8, 4, 200, 200, 64, True),    # ragged tail
+    (1, 9, 3, 128, 128, 64, True),    # smollm's 9 heads over 3 KV heads
+]
+
+
+def _qkv(B, H, Hkv, Sq, Sk, Dh, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, Sq, Dh), dtype=np.float32),
+            rng.standard_normal((B, Hkv, Sk, Dh), dtype=np.float32),
+            rng.standard_normal((B, Hkv, Sk, Dh), dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", FLASH_CASES)
+def test_flash_ref_matches_pallas(B, H, Hkv, Sq, Sk, Dh, causal, dtype):
+    """The plain version (several blocks, and its default blocks) against
+    the Pallas kernel in interpret mode and the reference's own plain
+    version, on the same inputs (bfloat16 rounded alike in both)."""
+    arrs = _qkv(B, H, Hkv, Sq, Sk, Dh)
+    jq, jk, jv = (jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in arrs)
+    pallas = np.asarray(flash_attention_tpu(jq, jk, jv, causal=causal,
+                                            block_q=32, block_k=32,
+                                            interpret=True), np.float32)
+    jref = np.asarray(jax_flash_ref(jq, jk, jv, causal=causal),
+                      np.float32)
+    tol = TOL[dtype]
+    for got in (flash_attention_ref(tq, tk, tv, causal=causal, q_block=16,
+                                    kv_block=32),
+                flash_attention(tq, tk, tv, causal=causal)):
+        assert got.dtype == tq.dtype and got.shape == tq.shape
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+        np.testing.assert_allclose(got, jref, atol=tol, rtol=tol)
+
+
+# -------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (130, 256),
+                                   (5, 576)])
+def test_rmsnorm_ref_matches_pallas(shape, dtype):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    w = rng.standard_normal(shape[-1:], dtype=np.float32) + 1.0
+    pallas = np.asarray(rmsnorm_tpu(jnp.asarray(x, getattr(jnp, dtype)),
+                                    jnp.asarray(w, getattr(jnp, dtype)),
+                                    block_rows=8, interpret=True),
+                        np.float32)
+    tx, tw = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, w))
+    for got in (rmsnorm_ref(tx, tw), rmsnorm(tx, tw)):
+        assert got.dtype == tx.dtype and got.shape == tx.shape
+        np.testing.assert_allclose(got.float().numpy(), pallas,
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# ------------------------------------------------ dispatch of the new ops
+def test_new_ops_on_cpu_run_plain_version_without_launching():
+    reset_launches()
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 1, 8, 8, 32))
+    flash_attention(q, k, v)
+    rmsnorm(q, torch.ones(32))
+    M, G, contrib = _gain_inputs(8, True)
+    swap_gain(torch.from_numpy(M), torch.from_numpy(G),
+              torch.from_numpy(contrib), 3)
+    assert all(n == 0 for n in LAUNCHES.values())
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "rmsnorm", "swap_gain"])
+def test_new_ops_kernel_impl_refuses_cpu_tensors(op):
+    q = torch.zeros(1, 2, 8, 32)
+    M = torch.zeros(8, 8, dtype=torch.float64)
+    calls = {
+        "flash_attention": lambda: flash_attention(q, q, q, impl="kernel"),
+        "rmsnorm": lambda: rmsnorm(q, torch.ones(32), impl="kernel"),
+        "swap_gain": lambda: swap_gain(M, M, M[0], 0, impl="kernel"),
+    }
+    with pytest.raises(ValueError):
+        calls[op]()
