@@ -34,9 +34,18 @@ toolkit.  The script
    the reference package's logits (``EXPECTED_FORWARD``); 8 decode steps
    from empty caches, held to the forward (forward and decode then run
    once more under ``torch.profiler``); and the serve driver with its
-   default arguments.
+   default arguments;
+7. holds the ``ssd_scan`` kernel against the exact recurrence and the
+   chunked plain version at the reference's kernel-test shapes, the
+   reduced mamba2's and mamba2-2.7b's own (chunk 64 and 128), float32 and
+   bfloat16, and runs mamba2-2.7b at full width: two layers on
+   NumPy-seeded weights held to the reference package's logits
+   (``EXPECTED_MAMBA2``); all 64 layers on a 2 x 2048-token forward, held
+   to its plain-version forward; 8 decode steps from empty caches held to
+   that forward; and the serve driver.
 
-Steps 5 and 6 run between steps 2 and 3.  Each phase prints one JSON
+Steps 5 to 7 run between steps 2 and 3; ``ssd_scan`` is checked with the
+other model kernels in step 5.  Each phase prints one JSON
 line.  Then come the kernel summary line, the card's name and power
 limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
@@ -127,6 +136,25 @@ def forward_agrees(summary, expected=EXPECTED_FORWARD) -> bool:
         for s, e in zip(summary, expected))
 
 
+# The cut-depth mamba2-2.7b forward (two layers, full width, B 2 x 256
+# tokens) is held to the reference package at these positions.
+MAMBA2_HELD_POSITIONS = (0, 127, 255)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(mamba2-2.7b with n_layers=2, seed=0) and
+# SyntheticDataset(50280, 256, 2, seed=0).batch(0): row 0 at
+# MAMBA2_HELD_POSITIONS, then row 1.  Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_ssm.py -k expected_mamba2
+EXPECTED_MAMBA2 = [
+    [25942, 30.699237526394427, 0.7524933815002441],
+    [14439, 38.93713191058487, 0.30605459213256836],
+    [5842, -225.65918770618737, 0.37107372283935547],
+    [12249, 175.2925356309861, 0.2604396343231201],
+    [21853, 405.7033743020147, 0.2919578552246094],
+    [11623, 198.10172006301582, 0.5906195640563965],
+]
+
+
 KERNELS = {
     "swap_select": dict(
         source="src/repro_torch/kernels/swap_gain/swap_select.cu",
@@ -146,6 +174,9 @@ KERNELS = {
     "rmsnorm": dict(
         source="src/repro_torch/kernels/rmsnorm/rmsnorm.cu",
         replaces="src/repro/kernels/rmsnorm/kernel.py:24"),
+    "ssd_scan": dict(
+        source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:75"),
 }
 
 
@@ -430,7 +461,7 @@ def profiled(run, key: str) -> dict:
 
 
 # launches of each kernel on the path that needs it (the placement phases,
-# the model phase, the rmsnorm and swap_gain entry-point phases), and the
+# the model phases, the rmsnorm and swap_gain entry-point phases), and the
 # largest shape each was launched at there (see repro_torch.kernels.SHAPES)
 MAIN_PATH_LAUNCHES = {name: 0 for name in KERNELS}
 MAIN_PATH_SHAPES = {name: None for name in KERNELS}
@@ -602,6 +633,88 @@ def check_swap_gain(dev, dt: str, n: int, tag: str) -> dict:
     return rec
 
 
+# the reference's SSD kernel-test tolerances (tests/test_kernels.py)
+SSD_TOL = {"float32": 5e-5, "bfloat16": 5e-2}
+# (B, H, G, S, P, N, chunk): the reference's three kernel-test shapes, the
+# reduced mamba2's, and mamba2-2.7b's B 2 x 2048 prefill (the main path's,
+# chunk 64) also at the entry point's default chunk of 128
+SSD_SHAPES = [(1, 2, 1, 64, 16, 16, 16), (2, 4, 2, 128, 32, 32, 32),
+              (1, 8, 1, 96, 64, 128, 32), (2, 8, 1, 64, 16, 16, 8)]
+SSD_MAIN = (2, 80, 1, 2048, 64, 128, 64)
+SSD_MAIN_128 = SSD_MAIN[:6] + (128,)
+
+
+def ssd_ops(B, H, G, S, P, N) -> float:
+    """The least operations of the SSD scan at this shape.  The chunked
+    form at a tile of Q rows does, per (b, group, tile), the lower
+    triangle of C B^T (the heads of a group share it, N each) and, per
+    (b, h, tile), its product with xdt (P each), the carry-in product and
+    the state update (Q P N each) and the state's decay (P N); two
+    operations per multiply-add.  The result does not depend on the tile,
+    so the least count over the tiles 1 (the one-token recurrence) to 64
+    (the kernel's) that divide S is taken."""
+    def at(Q):
+        n, tri = S // Q, Q * (Q + 1) // 2
+        return 2.0 * B * G * n * tri * N \
+            + B * H * n * (2.0 * tri * P + 4 * Q * P * N + P * N)
+    return min(at(Q) for Q in (1, 2, 4, 8, 16, 32, 64) if S % Q == 0)
+
+
+def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
+    """ssd_scan against the exact recurrence (ssd_scan_ref) in both types
+    and against the chunked algorithm (``impl="ref"``) in float32, on the
+    reference's kernel-test distribution; with ``timed``, the kernel, both
+    plain versions and the bound.  No PyTorch call computes the SSD scan
+    (library_ms null)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    B, H, G, S, P, N, chunk = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)
+    tdt = _tdtype(dt)
+    xdt = (rand(B, H, S, P) * 0.5).to(tdt)
+    dA = (-F.softplus(rand(B, H, S)) * 0.5).to(tdt)
+    Bm, Cm = ((rand(B, G, S, N) * 0.5).to(tdt) for _ in range(2))
+    run = lambda: ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk,
+                                  impl="kernel")
+    chunked = lambda: ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk,
+                                      impl="ref")
+    exact = lambda: ssd_scan_ref(xdt, dA, Bm, Cm, chunk)
+    y, st = run()
+    wants = {"exact": exact()}
+    if dt == "float32":
+        wants["chunked"] = chunked()
+    torch.cuda.synchronize()
+    tol, errs, ok = SSD_TOL[dt], {}, True
+    for name, (y_r, st_r) in wants.items():
+        errs[name] = max(float((y.float() - y_r.float()).abs().max()),
+                         float((st - st_r).abs().max()))
+        ok &= bool(torch.allclose(y.float(), y_r.float(), atol=tol, rtol=tol)
+                   and torch.allclose(st, st_r, atol=tol, rtol=tol))
+    del y, st, wants
+    rec = {"max_abs_err": max(errs.values())}
+    if timed:
+        ms, host, _ = cuda_ms(run)
+        plain, _, plain_ahead = cuda_ms(chunked, strict=False)
+        exact_ms, _, _ = cuda_ms(exact, reps=1, trials=3, warmup=1,
+                                 strict=False)
+        size = xdt.element_size()
+        nbytes = (2 * B * H * S * P + 2 * B * G * S * N) * size \
+            + B * H * S * dA.element_size() + B * H * P * N * 4
+        rec = _record(rec["max_abs_err"], ms, host, plain, plain_ahead,
+                      None, nbytes, ssd_ops(B, H, G, S, P, N), dt)
+        rec["exact_ms"] = exact_ms
+    emit({"phase": tag, "kernel": "ssd_scan", "dtype": dt,
+          "shape": list(shape), "tol": tol, "max_abs_err_vs": errs,
+          "ok": ok, **rec})
+    if not ok:
+        raise AssertionError(f"ssd_scan disagrees at {shape} {dt}")
+    return rec
+
+
 def model_kernel_phase(dev) -> dict:
     """The model-stack kernels against their plain versions; the records
     at the main path's shape and dtype go into the summary line."""
@@ -622,6 +735,14 @@ def model_kernel_phase(dev) -> dict:
         rec = check_swap_gain(dev, dt, SWAP_GAIN_N, "kernels/model")
         if dt == "float64":          # the refiner's default dtype
             recs["swap_gain"] = rec
+    for dt in ("float32", "bfloat16"):
+        for shape in SSD_SHAPES:
+            check_ssd(dev, dt, shape, "kernels/model", timed=False)
+        rec = check_ssd(dev, dt, SSD_MAIN, "kernels/model", timed=True)
+        if dt == "float32":          # the mamba2 phases run float32
+            recs["ssd_scan"] = rec
+        check_ssd(dev, dt, SSD_MAIN_128, "kernels/model", timed=True)
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -664,24 +785,15 @@ def entry_point_phase(dev) -> None:
         raise AssertionError("an entry point did not launch its kernel")
 
 
-def model_phase(dev):
-    """smollm-135m, full width and depth, float32, NumPy-seeded weights:
-    the 2048-token forward through the flash kernel, held to the plain
-    version's forward and to the reference's logits.  Returns (model,
-    tokens, logits of the first 8 positions) for the decode phase."""
+def run_forward(model, toks, kernel: str, key: str):
+    """The forward of ``model`` on ``toks`` cold, warm, once more under
+    the profiler, and through the plain versions (``impl="ref"``), held
+    within 1e-4 of each other; ``kernel``'s launch counts are zeroed just
+    before the cold forward and read just after it.  Returns (logits,
+    record)."""
     import torch
-    from repro_torch import interop
-    from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.train.data import SyntheticDataset
 
-    cfg = get_arch("smollm-135m")
-    t0 = time.perf_counter()
-    model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
-                                 device=dev)
-    toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
-    toks = toks.to(dev)
-    load_s = time.perf_counter() - t0
     with torch.inference_mode():
         reset_launches()
         torch.cuda.synchronize()
@@ -690,38 +802,140 @@ def model_phase(dev):
         logits = model(toks)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
-        launches = _count_path(("flash_attention",))["flash_attention"]
+        launches = _count_path((kernel,))[kernel]
         peak = torch.cuda.max_memory_allocated()
         t0 = time.perf_counter()
         model(toks)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        prof = profiled(lambda: model(toks), "model/smollm-135m/forward-2048")
+        prof = profiled(lambda: model(toks), key)
+        total = LAUNCHES[kernel]
         plain = model(toks, impl="ref")
         torch.cuda.synchronize()
     err = float((logits - plain).abs().max())
     plain_ok = bool(torch.allclose(logits, plain, atol=1e-4, rtol=1e-4))
     del plain
-    finite = bool(torch.isfinite(logits).all())
-    summary = forward_summary(
-        logits[:, list(HELD_POSITIONS)].float().cpu().numpy())
-    ref_ok = forward_agrees(summary)
-    sum_rel = max(abs(s[1] - e[1]) / abs(e[1])
-                  for s, e in zip(summary, EXPECTED_FORWARD))
     B, S = toks.shape
-    ok = (launches == cfg.n_layers and LAUNCHES["flash_attention"]
-          == 3 * cfg.n_layers and plain_ok and ref_ok and finite
-          and tuple(logits.shape) == (B, S, cfg.vocab))
-    emit({"phase": "model/smollm-135m/forward-2048", "dtype": "float32",
-          "batch": B, "seq": S, "layers": cfg.n_layers,
-          "load_s": load_s, "cold_s": cold, "warm_s": warm,
-          "prefill_tok_per_s": B * S / warm, "peak_mem_mb": peak / 2**20,
-          "flash_launches_per_forward": launches,
-          "max_abs_err_vs_plain": err, "plain_ok": plain_ok,
-          "summary": summary, "max_sum_rel_err_vs_reference": sum_rel,
-          "reference_ok": ref_ok, **prof, "ok": ok})
-    if not ok:
+    n = model.cfg.n_layers
+    rec = {"phase": key, "dtype": str(logits.dtype).replace("torch.", ""),
+           "batch": B, "seq": S, "layers": n, "cold_s": cold,
+           "warm_s": warm, "prefill_tok_per_s": B * S / warm,
+           "peak_mem_mb": peak / 2**20, "kernel": kernel,
+           "launches_per_forward": launches,
+           "launches_in_three_forwards": total,
+           "max_abs_err_vs_plain": err, "plain_ok": plain_ok, **prof,
+           "finite": bool(torch.isfinite(logits).all()),
+           "shape_ok": tuple(logits.shape) == (B, S, model.cfg.vocab)}
+    rec["ok"] = (launches == n and total == 3 * n and plain_ok
+                 and rec["finite"] and rec["shape_ok"])
+    return logits, rec
+
+
+def held_to_reference(logits, positions, expected) -> dict:
+    """``forward_summary`` of ``logits`` at ``positions`` against the
+    reference's ``expected`` under ``forward_agrees``' rule."""
+    summary = forward_summary(logits[:, list(positions)].float().cpu()
+                              .numpy())
+    return {"summary": summary,
+            "max_sum_rel_err_vs_reference": max(
+                abs(s[1] - e[1]) / abs(e[1])
+                for s, e in zip(summary, expected)),
+            "reference_ok": forward_agrees(summary, expected)}
+
+
+def model_phase(dev):
+    """smollm-135m, full width and depth, float32, NumPy-seeded weights:
+    the 2048-token forward through the flash kernel, held to the plain
+    version's forward and to the reference's logits.  Returns (model,
+    tokens, logits of the first 8 positions) for the decode phase."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_arch("smollm-135m")
+    t0 = time.perf_counter()
+    model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
+                                 device=dev)
+    toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
+    toks = toks.to(dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    logits, rec = run_forward(model, toks, "flash_attention",
+                              "model/smollm-135m/forward-2048")
+    rec.update(load_s=load_s, **held_to_reference(logits, HELD_POSITIONS,
+                                                  EXPECTED_FORWARD))
+    rec["ok"] = rec["ok"] and rec["reference_ok"]
+    emit(rec)
+    if not rec["ok"]:
         raise AssertionError("the smollm-135m forward failed its checks")
+    return model, toks, logits[:, :8].clone()
+
+
+def mamba2_cut_phase(dev) -> None:
+    """mamba2-2.7b at full width with its depth cut to two layers,
+    float32, NumPy-seeded weights: a B 2 x 256 forward through the
+    ``ssd_scan`` kernel (one launch per layer), held to the reference's
+    logits (``EXPECTED_MAMBA2``)."""
+    import dataclasses
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = dataclasses.replace(get_arch("mamba2-2.7b"), n_layers=2)
+    t0 = time.perf_counter()
+    model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
+                                 device=dev)
+    toks = SyntheticDataset(cfg.vocab, 256, 2, seed=0).batch(0)["tokens"]
+    toks = toks.to(dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = model(toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _count_path(("ssd_scan",))["ssd_scan"]
+    rec = held_to_reference(logits, MAMBA2_HELD_POSITIONS, EXPECTED_MAMBA2)
+    B, S = toks.shape
+    ok = (launches == cfg.n_layers and rec["reference_ok"]
+          and bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == (B, S, cfg.vocab))
+    emit({"phase": "model/mamba2-2.7b/forward-256-L2", "dtype": "float32",
+          "batch": B, "seq": S, "layers": cfg.n_layers, "load_s": load_s,
+          "cold_s": wall, "ssd_scan_launches": launches, **rec, "ok": ok})
+    if not ok:
+        raise AssertionError("the cut-depth mamba2-2.7b forward failed its "
+                             "checks")
+
+
+def mamba2_phase(dev):
+    """mamba2-2.7b at full width and depth (64 layers), float32, weights
+    drawn on the card from seed 0: the B 2 x 2048 forward through the
+    ``ssd_scan`` kernel, held to the plain version's forward.  Returns
+    (model, tokens, logits of the first 8 positions) for the decode
+    phase."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.train.data import SyntheticDataset
+
+    cfg = get_arch("mamba2-2.7b")
+    t0 = time.perf_counter()
+    model = M.init(cfg, seed=0, device=dev)
+    toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
+    toks = toks.to(dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    logits, rec = run_forward(model, toks, "ssd_scan",
+                              "model/mamba2-2.7b/forward-2048")
+    rec["load_s"] = load_s
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("the mamba2-2.7b forward failed its checks")
     return model, toks, logits[:, :8].clone()
 
 
@@ -753,7 +967,7 @@ def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    key = "model/smollm-135m/decode-8"
+    key = f"model/{model.cfg.name}/decode-{steps}"
     emit({"phase": key, "batch": B, "steps": steps, "s": wall,
           "ms_per_step": wall / steps * 1e3, **profiled(run, key),
           "max_abs_err_vs_forward": err, "ok": ok})
@@ -761,7 +975,7 @@ def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
         raise AssertionError("decode disagrees with the forward")
 
 
-def serve_phase() -> None:
+def serve_phase(arch: str = "smollm-135m") -> None:
     """The port's serve driver with the reference's default arguments, on
     ``cuda``: it must return 0; its printed times are read back."""
     import contextlib
@@ -769,7 +983,7 @@ def serve_phase() -> None:
     import re
     from repro_torch.launch import serve
 
-    argv = ["--arch", "smollm-135m", "--batch", "4", "--prompt-len", "32",
+    argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
             "--gen", "16"]
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -779,7 +993,7 @@ def serve_phase() -> None:
     out = buf.getvalue()
     secs = [float(x) for x in re.findall(r"in ([0-9.]+)s", out)]
     ok = rc == 0 and len(secs) == 2 and len(out.splitlines()) == 3
-    emit({"phase": "serve/smollm-135m", "argv": argv, "rc": rc,
+    emit({"phase": f"serve/{arch}", "argv": argv, "rc": rc,
           "wall_s": wall, "prefill_s": secs[0] if ok else None,
           "decode_s": secs[1] if ok else None,
           "prefill_tok_per_s": 32 * 4 / secs[0] if ok and secs[0] else None,
@@ -846,6 +1060,18 @@ def main() -> int:
     except Exception:                       # reported, and the run fails
         traceback.print_exc()
         failed.append("model")
+    torch.cuda.empty_cache()
+    try:
+        mamba2_cut_phase(dev)
+        torch.cuda.empty_cache()
+        model, toks, fwd_logits = mamba2_phase(dev)
+        decode_phase(model, toks, fwd_logits)
+        del model, toks, fwd_logits
+        torch.cuda.empty_cache()
+        serve_phase("mamba2-2.7b")
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("mamba2")
     torch.cuda.empty_cache()
     for run in placement_phases():
         try:

@@ -82,8 +82,8 @@ def request(G_v: np.ndarray, G_m: Optional[np.ndarray] = None, *,
 
 def model_params(cfg, params_np: dict, *, device="cuda",
                  dtype: torch.dtype = torch.float32) -> Transformer:
-    """A :class:`~repro_torch.models.model.Transformer` holding the
-    reference's parameters.
+    """A :class:`~repro_torch.models.model.Transformer` (dense GQA or SSM)
+    holding the reference's parameters.
 
     ``params_np`` is the reference's nested parameter dict as NumPy
     arrays, for example ``jax.tree.map(np.asarray, repro.models.model.
@@ -116,8 +116,9 @@ def model_params(cfg, params_np: dict, *, device="cuda",
 
 
 def seeded_params(cfg, seed: int = 0) -> dict:
-    """Parameters of a dense model drawn with NumPy, in the reference's
-    layout (nested dict, blocks stacked over layers), float32.
+    """Parameters of a model the port runs (dense GQA or SSM) drawn with
+    NumPy, in the reference's layout (nested dict, blocks stacked over
+    layers), float32.
 
     Each schema leaf in the schema's order (the blocks' leaves in their
     own order after the top-level ones) is ones, zeros, or

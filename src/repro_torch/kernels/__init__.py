@@ -8,8 +8,8 @@ that the main path went through the kernels: zero the counts with
 :func:`reset_launches`, drive the path, read them back.  ``SHAPES`` keeps,
 beside each count, the largest shape the kernel was launched at since the
 last reset: (B, n) for ``swap_select``, (B, m, k) for the hop kernels,
-(n,) for ``swap_gain``, (B, H, Hkv, Sq, Sk, Dh) for ``flash_attention``
-and (rows, D) for ``rmsnorm``.
+(n,) for ``swap_gain``, (B, H, Hkv, Sq, Sk, Dh) for ``flash_attention``,
+(rows, D) for ``rmsnorm`` and (B, H, G, S, P, N, chunk) for ``ssd_scan``.
 
 Every wrapper chooses by the device of the tensors it is handed
 (:func:`use_kernel`): ``impl="auto"`` launches the CUDA kernel for tensors
@@ -23,7 +23,8 @@ import math
 import torch
 
 LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
-            "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0}
+            "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0,
+            "ssd_scan": 0}
 SHAPES: dict = {name: None for name in LAUNCHES}
 
 

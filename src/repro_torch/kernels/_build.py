@@ -47,6 +47,7 @@ SOURCES = {
     "swap_gain": _PKG / "swap_gain" / "swap_select.cu",
     "flash_attention": _PKG / "flash_attention" / "flash_attention.cu",
     "rmsnorm": _PKG / "rmsnorm" / "rmsnorm.cu",
+    "ssd_scan": _PKG / "ssd_scan" / "ssd_scan.cu",
 }
 
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
-It prefills token by token through the decode step, as the reference's
+``--arch`` takes the dense GQA models and mamba2-2.7b.  The driver
+prefills token by token through the decode step, as the reference's
 driver does, then decodes greedily, under ``torch.inference_mode()``.
 The weights are random, drawn from ``--seed`` on the target device.
 """

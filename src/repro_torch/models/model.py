@@ -1,20 +1,21 @@
-"""The dense model stack as a PyTorch module.
+"""The model stack as a PyTorch module.
 
     schema(cfg)                         -> nested dict of ParamDef (stacked)
     init(cfg, seed=..., device=...)     -> Transformer, parameters drawn
     Transformer(cfg, device=...)(tokens) -> logits  (train / prefill)
 
 The reference scans one stacked parameter tree over its layers
-(``lax.scan``); here each layer is a :class:`DenseBlock` in a
-``ModuleList`` and the parameters of layer ``l`` are the slices ``[l]`` of
-the reference's stacked leaves, in the same orientation, so loading one
-into the other is a slice per layer (:func:`repro_torch.interop.
-model_params`).  :func:`param_leaves` names that correspondence.
+(``lax.scan``); here each layer is a :class:`DenseBlock` or a
+:class:`MambaBlock` in a ``ModuleList`` and the parameters of layer ``l``
+are the slices ``[l]`` of the reference's stacked leaves, in the same
+orientation, so loading one into the other is a slice per layer
+(:func:`repro_torch.interop.model_params`).  :func:`param_leaves` names
+that correspondence.
 
-This slice ports the dense family with GQA attention (smollm-135m,
-starcoder2-7b, nemotron-4-340b); the other families and MLA raise
-``NotImplementedError``.  The port is single-device: the reference's
-sharding context is not carried over.
+The port runs the dense family with GQA attention (smollm-135m,
+starcoder2-7b, nemotron-4-340b) and the SSM family (mamba2-2.7b); the
+other families and MLA raise ``NotImplementedError``.  The port is
+single-device: the reference's sharding context is not carried over.
 """
 from __future__ import annotations
 
@@ -28,10 +29,10 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.models.layers import (ParamDef, gqa_attention, gqa_schema,
                                        init_, mlp, mlp_schema, rmsnorm,
                                        rope_freqs)
+from repro_torch.models.ssm import mamba2_block, mamba2_schema
 
 # what is still to be ported, by ROADMAP.md queue 1 item
 _NOT_PORTED = {
-    "ssm": "the SSM family with the ssd_scan kernel (mamba2-2.7b)",
     "moe": "MoE (phi3.5-moe, deepseek-v2-lite)",
     "hybrid": "the other model families (zamba2, llama-3.2-vision, "
               "seamless-m4t)",
@@ -45,12 +46,12 @@ _NOT_PORTED = {
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         what = _NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; "
             f"ROADMAP.md queue 1 lists it under {what}")
-    if cfg.attn_type != "gqa":
+    if cfg.family == "dense" and cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_type!r} is not ported yet; "
             f"ROADMAP.md queue 1 lists it under {_NOT_PORTED['mla']}")
@@ -67,8 +68,8 @@ def _norms_schema(cfg: ModelConfig, layers: int, n: int = 2) -> dict:
 
 
 def schema(cfg: ModelConfig) -> dict:
-    """The reference's parameter schema of a dense GQA model, with the
-    blocks' leaves stacked over a leading layer axis."""
+    """The reference's parameter schema of a dense GQA or an SSM model,
+    with the blocks' leaves stacked over a leading layer axis."""
     check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab
     sch: dict = {
@@ -78,8 +79,12 @@ def schema(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         sch["unembed"] = ParamDef((V, d), ("vocab", "embed"))
     L = cfg.n_layers
-    sch["blocks"] = {**gqa_schema(cfg, L), **mlp_schema(cfg, L),
-                     **_norms_schema(cfg, L)}
+    if cfg.family == "ssm":
+        sch["blocks"] = {**mamba2_schema(cfg, L),
+                         **_norms_schema(cfg, L, n=1)}
+    else:
+        sch["blocks"] = {**gqa_schema(cfg, L), **mlp_schema(cfg, L),
+                         **_norms_schema(cfg, L)}
     return sch
 
 
@@ -129,9 +134,31 @@ class DenseBlock(nn.Module):
         return h, kc
 
 
+class MambaBlock(nn.Module):
+    """One pre-norm mamba2 layer with a residual, the reference's
+    ``_mamba_layer``.
+
+    Its parameters carry the reference's names and orientation
+    (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
+    ``d_skip``, ``norm_w``, ``out_proj``, ``ln1``)."""
+
+    def __init__(self, shapes: dict, *, device, dtype):
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(name, _empty(shape, device, dtype))
+
+    def forward(self, h, cfg: ModelConfig, *, conv_state=None,
+                ssm_state=None, impl: str = "auto"):
+        o, caches = mamba2_block(self, rmsnorm(h, self.ln1), cfg,
+                                 conv_state=conv_state, ssm_state=ssm_state,
+                                 impl=impl)
+        return h + o, caches
+
+
 class Transformer(nn.Module):
-    """The dense decoder: token embedding, ``n_layers`` dense blocks, the
-    final norm and the tied or untied unembedding.
+    """The decoder: token embedding, ``n_layers`` dense or mamba2 blocks
+    (by the config's family), the final norm and the tied or untied
+    unembedding.
 
     The parameters are made on ``device`` (``cuda`` unless the caller asks
     for ``cpu``; without a GPU a CUDA device raises
@@ -152,8 +179,9 @@ class Transformer(nn.Module):
             "unembed", None if cfg.tie_embeddings
             else _empty(sch["unembed"].shape, dev, dtype))
         per_layer = {k: d.shape[1:] for k, d in sch["blocks"].items()}
+        block = MambaBlock if cfg.family == "ssm" else DenseBlock
         self.blocks = nn.ModuleList(
-            DenseBlock(per_layer, device=dev, dtype=dtype)
+            block(per_layer, device=dev, dtype=dtype)
             for _ in range(cfg.n_layers))
 
     @property
@@ -172,12 +200,17 @@ class Transformer(nn.Module):
                 impl: str = "auto") -> torch.Tensor:
         """Token logits (B, S, vocab) for train/prefill from tokens (B, S).
 
-        ``impl`` is handed to the flash-attention entry point, which
-        causal sequences of ``FLASH_MIN_SEQ`` tokens or more run through
-        (its CUDA kernel is forward-only: call this under
-        ``torch.inference_mode()`` on a GPU)."""
+        ``impl`` is handed to the kernel entry point of the family: the
+        flash attention, which causal sequences of ``FLASH_MIN_SEQ``
+        tokens or more run through, or every mamba2 layer's ``ssd_scan``.
+        Both CUDA kernels are forward-only: call this under
+        ``torch.inference_mode()`` on a GPU."""
         B, S = tokens.shape
         h = self.embed(tokens)
+        if self.cfg.family == "ssm":
+            for blk in self.blocks:
+                h, _ = blk(h, self.cfg, impl=impl)
+            return self.logits(h)
         cos, sin = _rope(self.cfg, S, device=self.device)
         for blk in self.blocks:
             h, _ = blk(h, self.cfg, cos, sin, impl=impl)

@@ -13,7 +13,7 @@ shards from) are equal:
 
 :func:`cache_schema` covers every family (shape arithmetic only);
 :func:`init_cache` allocates the caches the port can decode with: the
-dense GQA family.
+dense GQA family and the SSM family.
 """
 from __future__ import annotations
 
@@ -95,8 +95,12 @@ def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype: torch.dtype = torch.float32, device="cuda") -> dict:
-    """Zeroed decode caches of a dense GQA model, made on ``device``:
-    ``{"blocks": {"k", "v"}}``, each (L, B, Hkv, max_seq, Dh)."""
+    """Zeroed decode caches made on ``device``: for a dense GQA model
+    ``{"blocks": {"k", "v"}}``, each (L, B, Hkv, max_seq, Dh), in
+    ``dtype``; for an SSM model ``{"blocks": {"conv", "state"}}``, the conv
+    tail (L, B, d_conv - 1, C) in ``dtype`` and the state (L, B, H, P, N)
+    always in float32 (``max_seq`` does not enter: the caches are O(1) in
+    sequence length)."""
     check_ported(cfg)
     dev = resolve_device(device)
     sch = cache_schema(cfg, batch, max_seq)

@@ -13,8 +13,10 @@ refine branch of a placement on the card must return the placement the
 plain versions return on the CPU, having launched the kernel of its
 branch.  The attention and normalisation kernels are held to their plain
 versions within the reference's kernel-test tolerances (2e-5 in float32,
-2e-2 in bfloat16), and the model's forward through the flash kernel to
-its forward through the plain version within 1e-4.
+2e-2 in bfloat16), the SSD scan kernel within that test's 5e-5 / 5e-2 to
+the exact recurrence and to the chunked algorithm, and the models'
+forwards through the kernels to their forwards through the plain
+versions within 1e-4.
 """
 import numpy as np
 import pytest
@@ -37,6 +39,9 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
+                                              ssd_scan_kernel)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
                                                swap_select)
 from repro_torch.kernels.swap_gain.ref import (swap_gain_ref,  # noqa: E402
@@ -238,4 +243,108 @@ def test_forward_kernel_matches_plain(cuda_device, S):
 def test_serve_main_on_card(cuda_device, capsys):
     assert serve.main(["--reduced", "--batch", "2", "--prompt-len", "8",
                        "--gen", "4"]) == 0
+    assert capsys.readouterr().out.count("\n") == 3
+
+
+# ------------------------------------------------------------- ssd_scan
+SSD_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+SSD_SHAPES = [                        # (B, H, G, S, P, N, chunk)
+    (1, 2, 1, 64, 16, 16, 16),        # the reference's kernel tests
+    (2, 4, 2, 128, 32, 32, 32),
+    (1, 8, 1, 96, 64, 128, 32),
+    (2, 8, 1, 64, 16, 16, 8),         # reduced mamba2
+    (2, 80, 1, 2048, 64, 128, 64),    # mamba2-2.7b, B 2 x 2048
+    (2, 80, 1, 2048, 64, 128, 128),   # the entry point's default chunk
+]
+
+
+def _ssd_inputs(device, B, H, G, S, P, N, dtype, seed=1):
+    """The reference's kernel-test distribution: xdt, B, C normal * 0.5,
+    dA = -softplus(normal) * 0.5."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=device)
+    xdt = (rand(B, H, S, P) * 0.5).to(dtype)
+    dA = (-torch.nn.functional.softplus(rand(B, H, S)) * 0.5).to(dtype)
+    Bm = (rand(B, G, S, N) * 0.5).to(dtype)
+    Cm = (rand(B, G, S, N) * 0.5).to(dtype)
+    return xdt, dA, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda_device, B, H, G, S, P, N, chunk,
+                                  dtype):
+    """The kernel against the exact recurrence in both types, and against
+    the chunked algorithm (its ``impl="ref"``) in float32."""
+    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    reset_launches()
+    y, st = ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk, impl="kernel")
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    assert y.dtype == dtype and st.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    want = [ssd_scan_ref(xdt, dA, Bm, Cm, chunk)]
+    if dtype == torch.float32:
+        want.append(ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk, impl="ref"))
+    for y_r, st_r in want:
+        torch.testing.assert_close(y.float(), y_r.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(st, st_r, atol=tol, rtol=tol)
+
+
+def test_ssd_entry_point_model_layout(cuda_device):
+    """The model-layout entry point folds dt in and launches the kernel;
+    it agrees with the chunked algorithm on the same inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, S, H, P, G, N = 2, 96, 4, 16, 2, 32
+    x = torch.randn((B, S, H, P), generator=g, device=cuda_device) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=cuda_device))
+    A = -torch.exp(torch.randn(H, generator=g, device=cuda_device) * 0.3)
+    Bm, Cm = (torch.randn((B, S, G, N), generator=g, device=cuda_device)
+              * 0.5 for _ in range(2))
+    reset_launches()
+    y, st = ssd_scan(x, dt, A, Bm, Cm, chunk=32)
+    assert LAUNCHES["ssd_scan"] == 1
+    y_r, st_r = ssd_scan(x, dt, A, Bm, Cm, chunk=32, impl="ref")
+    torch.testing.assert_close(y, y_r, atol=5e-5, rtol=5e-5)
+    torch.testing.assert_close(st, st_r, atol=5e-5, rtol=5e-5)
+
+
+def test_ssd_kernel_refuses_grad(cuda_device):
+    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, 1, 2, 1, 16, 16, 16,
+                                  torch.float32)
+    xdt.requires_grad_(True)
+    with pytest.raises(NotImplementedError):
+        ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=8, impl="kernel")
+
+
+def test_ssd_kernel_refuses_chunk_not_dividing_seq(cuda_device):
+    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, 1, 2, 1, 24, 16, 16,
+                                  torch.float32)
+    with pytest.raises(ValueError):
+        ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=16, impl="kernel")
+
+
+@pytest.mark.parametrize("S", [8, 64])
+def test_mamba2_forward_kernel_matches_plain(cuda_device, S):
+    """Reduced mamba2 through the ssd_scan kernel (once per layer) against
+    the same model through the plain version."""
+    cfg = reduced(get_arch("mamba2-2.7b"))
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, S), device=cuda_device)
+    reset_launches()
+    with torch.inference_mode():
+        got = model(toks, impl="kernel")
+        launched = LAUNCHES["ssd_scan"]
+        want = model(toks, impl="ref")
+    assert launched == cfg.n_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_serve_main_on_card(cuda_device, capsys, dtype):
+    assert serve.main(["--arch", "mamba2-2.7b", "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4",
+                       "--dtype", dtype]) == 0
     assert capsys.readouterr().out.count("\n") == 3

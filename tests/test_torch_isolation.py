@@ -47,7 +47,10 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.kernels.swap_gain.ops\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.rmsnorm.ops\n"
-        "import repro_torch.models.model, repro_torch.serve.decode\n"
+        "import repro_torch.kernels.ssd_scan.ops\n"
+        "import repro_torch.kernels.ssd_scan.ref\n"
+        "import repro_torch.models.model, repro_torch.models.ssm\n"
+        "import repro_torch.serve.decode\n"
         "import repro_torch.launch.serve, repro_torch.train.data\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.workloads\n"
@@ -148,7 +151,8 @@ def test_interop_round_trip():
 
 
 @pytest.mark.parametrize("entry", ["Transformer", "init", "init_cache",
-                                   "serve_main", "extra_inputs"])
+                                   "serve_main", "extra_inputs",
+                                   "Transformer-mamba2", "init_cache-mamba2"])
 def test_model_entry_points_target_the_card(monkeypatch, entry):
     """The model, its caches and the serve driver are made on ``cuda``
     unless the caller asks for the CPU: without a GPU they raise, and
@@ -163,6 +167,7 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_arch("smollm-135m"))
+    ssm_cfg = reduced(get_arch("mamba2-2.7b"))
     calls = {
         "Transformer": lambda: model.Transformer(cfg),
         "init": lambda: model.init(cfg, seed=0),
@@ -171,6 +176,8 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
                                           "--prompt-len", "2"]),
         "extra_inputs": lambda: extra_inputs(
             reduced(get_arch("llama-3.2-vision-11b")), 1),
+        "Transformer-mamba2": lambda: model.Transformer(ssm_cfg),
+        "init_cache-mamba2": lambda: init_cache(ssm_cfg, 1, 8),
     }
     with pytest.raises(backend.BackendUnavailableError):
         calls[entry]()

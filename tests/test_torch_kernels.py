@@ -218,7 +218,8 @@ def test_cpu_tensors_run_plain_version_without_launching():
     swap_select(torch.from_numpy(M), torch.from_numpy(G),
                 torch.from_numpy(contrib), torch.tensor([0]), 8)
     assert LAUNCHES == {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
-                        "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0}
+                        "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0,
+                        "ssd_scan": 0}
 
 
 def test_kernel_impl_refuses_cpu_tensors():

@@ -159,7 +159,7 @@ def test_model_params_rejects_mismatch():
                              device="cpu")
 
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "minicpm3-4b",
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2", "minicpm3-4b",
                                   "phi3.5-moe-42b", "zamba2-7b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
