@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -182,6 +183,39 @@ KERNELS = {
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def ptxas_report(logs: dict) -> list:
+    """Registers and spill bytes of every kernel instance in ptxas's
+    report (``nvcc -Xptxas -v``), by source; names demangled with
+    ``c++filt`` where it is installed."""
+    rows, cur = [], None
+    for source, log in logs.items():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = {"source": source, "kernel": m.group(1)}
+                rows.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur is not None:
+                cur["spill_store_bytes"] = int(m.group(1))
+                cur["spill_load_bytes"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    if len(out) == len(rows):
+        for r, name in zip(rows, out):
+            name = name.replace("(anonymous namespace)::", "")
+            r["kernel"] = name.split("(")[0].removeprefix("void ")
+    return rows
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3,
@@ -557,6 +591,7 @@ def check_flash(dev, dt: str, shape: tuple, tag: str) -> dict:
     nbytes = (2 * B * H * Sq * Dh + 2 * B * Hkv * Sk * Dh) * size
     rec = _record(err, ms, host, plain, plain_ahead, library, nbytes,
                   4.0 * Dh * pairs * B * H, dt)
+    rec["ms_over_library"] = ms / library
     emit({"phase": tag, "kernel": "flash_attention", "dtype": dt,
           "shape": list(shape), "causal": True, "tol": TOL[dt], "ok": ok,
           **rec})
@@ -668,7 +703,8 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
     (library_ms null)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.ops import (ssd_scan_kernel,
+                                                  workspace_bytes)
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     B, H, G, S, P, N, chunk = shape
@@ -695,7 +731,8 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
         ok &= bool(torch.allclose(y.float(), y_r.float(), atol=tol, rtol=tol)
                    and torch.allclose(st, st_r, atol=tol, rtol=tol))
     del y, st, wants
-    rec = {"max_abs_err": max(errs.values())}
+    rec = {"max_abs_err": max(errs.values()),
+           "workspace_bytes": workspace_bytes(B, H, S, P, N, chunk)}
     if timed:
         ms, host, _ = cuda_ms(run)
         plain, _, plain_ahead = cuda_ms(chunked, strict=False)
@@ -704,8 +741,8 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
         size = xdt.element_size()
         nbytes = (2 * B * H * S * P + 2 * B * G * S * N) * size \
             + B * H * S * dA.element_size() + B * H * P * N * 4
-        rec = _record(rec["max_abs_err"], ms, host, plain, plain_ahead,
-                      None, nbytes, ssd_ops(B, H, G, S, P, N), dt)
+        rec.update(_record(rec["max_abs_err"], ms, host, plain, plain_ahead,
+                           None, nbytes, ssd_ops(B, H, G, S, P, N), dt))
         rec["exact_ms"] = exact_ms
     emit({"phase": tag, "kernel": "ssd_scan", "dtype": dt,
           "shape": list(shape), "tol": tol, "max_abs_err_vs": errs,
@@ -1031,6 +1068,8 @@ def main() -> int:
         f"== {name}\n{log}\n" for name, log in _build.BUILD_LOGS.items()))
     emit({"phase": "build", "s": time.perf_counter() - t0,
           "libraries": sorted(p.name for p in libs.values())})
+    emit({"phase": "build/ptxas",
+          "instances": ptxas_report(_build.BUILD_LOGS)})
 
     failed = []
     try:

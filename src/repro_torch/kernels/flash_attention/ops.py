@@ -60,7 +60,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "the CUDA flash-attention kernel is forward-only; run it under "
             "torch.inference_mode() or torch.no_grad()")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the bfloat16 kernel copies 16-byte pieces: a view that starts off
+    # such a boundary is copied to fresh (aligned) memory first
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
     lib = _lib()
     fn = (lib.flash_attention_f32 if q.dtype == torch.float32

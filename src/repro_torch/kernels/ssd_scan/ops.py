@@ -29,8 +29,10 @@ def _lib() -> ctypes.CDLL:
     if not hasattr(lib, "_typed"):
         for name in ("ssd_scan_f32", "ssd_scan_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 6 + [_I64] * 7 + [_P]
+            fn.argtypes = [_P] * 7 + [_I64] * 7 + [ctypes.c_int, _P]
             fn.restype = ctypes.c_int
+        lib.ssd_scan_workspace_floats.argtypes = [_I64] * 6
+        lib.ssd_scan_workspace_floats.restype = _I64
         lib._typed = True
     return lib
 
@@ -64,6 +66,15 @@ def ssd_scan_kernel(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     chunk = min(chunk, xdt.shape[2])
     if not use_kernel(impl, xdt):
         return ssd_chunked_folded(xdt, dA, B, C, chunk)
+    _check(xdt, dA, B, C, chunk)
+    y, st, _ = _run(xdt, dA, B, C, chunk, stages=3)
+    b, H, S, P = xdt.shape
+    count_launch("ssd_scan", (b, H, B.shape[1], S, P, B.shape[3], chunk))
+    return y, st
+
+
+def _check(xdt, dA, B, C, chunk: int) -> None:
+    """Raise on inputs the kernel does not take."""
     if xdt.ndim != 4 or dA.ndim != 3 or B.ndim != 4 or C.shape != B.shape:
         raise ValueError(f"xdt must be (B, H, S, P), dA (B, H, S) and B, C "
                          f"(B, G, S, N), got {tuple(xdt.shape)}, "
@@ -97,13 +108,60 @@ def ssd_scan_kernel(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         raise NotImplementedError(
             "the CUDA ssd_scan kernel is forward-only; run it under "
             "torch.inference_mode() or torch.no_grad()")
+
+
+def _run(xdt, dA, B, C, chunk: int, stages: int):
+    """Launch the kernel's first ``stages`` stages on checked inputs;
+    (y, final state, workspace)."""
+    b, H, S, P = xdt.shape
+    G, N = B.shape[1], B.shape[3]
     dA = dA.float()                  # exact for a bfloat16 dA
+    # the kernel reads xdt, B and C in 8- and 16-byte pieces: a view that
+    # starts off a 16-byte boundary is copied to fresh memory first
+    xdt, B, C = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (xdt, B, C))
     y = torch.empty_like(xdt)
     st = torch.empty((b, H, P, N), dtype=torch.float32, device=xdt.device)
     lib = _lib()
+    ws = torch.empty(workspace_bytes(b, H, S, P, N, chunk) // 4,
+                     dtype=torch.float32, device=xdt.device)
     fn = lib.ssd_scan_f32 if xdt.dtype == torch.float32 else lib.ssd_scan_bf16
     launch(lib, fn, "ssd_scan", xdt.device, xdt.data_ptr(), dA.data_ptr(),
-           B.data_ptr(), C.data_ptr(), y.data_ptr(), st.data_ptr(), b, H, G,
-           S, P, N, chunk)
-    count_launch("ssd_scan", (b, H, G, S, P, N, chunk))
-    return y, st
+           B.data_ptr(), C.data_ptr(), y.data_ptr(), st.data_ptr(),
+           ws.data_ptr(), b, H, G, S, P, N, chunk, stages)
+    return y, st, ws
+
+
+def workspace_bytes(b: int, H: int, S: int, P: int, N: int,
+                    chunk: int) -> int:
+    """Bytes of float32 scratch the kernel takes at this shape (the
+    per-tile states and decays), which the wrapper allocates."""
+    return 4 * _lib().ssd_scan_workspace_floats(b, H, S, P, N, min(chunk, S))
+
+
+def ssd_scan_stages(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, *, chunk: int = 128) -> dict:
+    """The kernel's intermediates, for tests on the card: stage 1 alone
+    (``chunk_states``, each tile's own state, and ``decays``, exp of its
+    summed dA), then stages 1 and 2 (``passed_states``, the state entering
+    each tile, and ``final_state``).  States are (B, H, tiles, P, N)
+    float32 over tiles of min(chunk, 64) rows.  Counts no launch: this is
+    not the entry point."""
+    use_kernel("kernel", xdt)          # raises for tensors off the card
+    chunk = min(chunk, xdt.shape[2])
+    _check(xdt, dA, B, C, chunk)
+    b, H, S, P = xdt.shape
+    N = B.shape[3]
+    out = {}
+    for stages in (1, 2):
+        _, st, ws = _run(xdt, dA, B, C, chunk, stages)
+        nT = ws.numel() // (b * H * (N * P + 1))
+        states = ws[:b * H * nT * N * P].view(b, H, nT, N, P)
+        states = states.transpose(-1, -2)
+        if stages == 1:
+            out["chunk_states"] = states
+            out["decays"] = ws[b * H * nT * N * P:].view(b, H, nT)
+        else:
+            out["passed_states"] = states
+            out["final_state"] = st
+    return out

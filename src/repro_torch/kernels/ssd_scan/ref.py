@@ -3,7 +3,10 @@
 :func:`ssd_chunked_folded` is the chunked algorithm, the reference
 model's own arithmetic: the kernel's plain version, which the entry point
 (``ops.py``) runs on the CPU and ``models/ssm.py``'s ``ssd_chunked`` runs
-after folding dt in.  :func:`ssd_scan_ref` is the oracle both it and the
+after folding dt in.  :func:`ssd_chunk_parallel` is the same algorithm
+in the three stages the CUDA kernel runs (chunk states, state passing,
+chunk outputs), returning each stage's result for the card tests; only
+tests call it.  :func:`ssd_scan_ref` is the oracle all of them and the
 CUDA kernel (``ssd_scan.cu``) are held to, the exact recurrence
 
   state_s = exp(dA_s) * state_{s-1} + xdt_s (x) B_s     (P x N outer product)
@@ -96,3 +99,54 @@ def ssd_chunked_folded(xdt, dA, B, C, chunk: int,
     # 4) inter-chunk output term: the carry-in state read by each position
     y = y + (Cc @ prev_states.transpose(-1, -2)) * torch.exp(cs)[..., None]
     return y.reshape(b, H, S, P).to(xdt.dtype), st.reshape(b, H, P, N)
+
+
+def ssd_chunk_parallel(xdt, dA, B, C, chunk: int):
+    """The chunked SSD in the kernel's three stages, on the kernel's
+    layout: xdt (B, H, S, P), dA (B, H, S), B/C (B, G, S, N) -> (y in
+    xdt's dtype, final state (B, H, P, N) float32, stages).  All
+    arithmetic is float32.
+
+    The sequence is cut in tiles of ``chunk`` rows; a last tile that S
+    does not fill is padded with zero rows and dA 0, which neither decay
+    nor add to the state, as the kernel pads it.  ``stages`` holds, over
+    the tiles c, ``decays`` (B, H, tiles) = exp(sum of the tile's dA),
+    ``chunk_states`` (B, H, tiles, P, N), the state each tile builds from
+    zero (stage 1), and ``passed_states`` (B, H, tiles, P, N), the state
+    entering each tile (stage 2); stage 3 is y."""
+    b, H, S, P = xdt.shape
+    G, N = B.shape[1], B.shape[3]
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    nT, Q, rep = -(-S // chunk), chunk, H // G
+    pad = nT * Q - S
+    rows = lambda t: torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+    x = rows(xdt).reshape(b, G, rep, nT, Q, P)
+    a = torch.nn.functional.pad(dA.float(), (0, pad)).reshape(b, G, rep, nT,
+                                                               Q)
+    Bc = rows(B).reshape(b, G, 1, nT, Q, N)
+    Cc = rows(C).reshape(b, G, 1, nT, Q, N)
+    cs = torch.cumsum(a, dim=-1)                          # within each tile
+
+    # 1) chunk states: each tile's state from zero, and its decay
+    decay = torch.exp(cs[..., -1:] - cs)                  # (b,G,rep,nT,Q)
+    own = (x * decay[..., None]).transpose(-1, -2) @ Bc   # (..,nT,P,N)
+    tile_decay = torch.exp(cs[..., -1])                   # (b,G,rep,nT)
+
+    # 2) state passing: the state entering each tile
+    st = x.new_zeros((b, G, rep, P, N))
+    passed = []
+    for c in range(nT):
+        passed.append(st)
+        st = st * tile_decay[..., c, None, None] + own[..., c, :, :]
+    passed = torch.stack(passed, dim=3)                   # (..,nT,P,N)
+
+    # 3) chunk outputs: (L o C B^T) xdt + exp(cs) o (C h_in^T)
+    L = torch.exp(_segsum(a))                             # 0 above the diagonal
+    y = ((Cc @ Bc.transpose(-1, -2)) * L) @ x
+    y = y + (Cc @ passed.transpose(-1, -2)) * torch.exp(cs)[..., None]
+    y = y.reshape(b, H, nT * Q, P)[:, :, :S]
+    stages = {"decays": tile_decay.reshape(b, H, nT),
+              "chunk_states": own.reshape(b, H, nT, P, N),
+              "passed_states": passed.reshape(b, H, nT, P, N)}
+    return y.to(xdt.dtype), st.reshape(b, H, P, N), stages

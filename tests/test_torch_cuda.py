@@ -40,8 +40,10 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
-                                              ssd_scan_kernel)
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+                                              ssd_scan_kernel,
+                                              ssd_scan_stages)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    ssd_chunk_parallel, ssd_scan_ref)
 from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
                                                swap_select)
 from repro_torch.kernels.swap_gain.ref import (swap_gain_ref,  # noqa: E402
@@ -170,6 +172,9 @@ FLASH_SHAPES = [
     (1, 4, 2, 130, 130, 128, False),
     (1, 2, 2, 100, 100, 192, True),   # MLA prefill head dims
     (1, 2, 1, 65, 190, 256, True),
+    (2, 9, 3, 2048, 2048, 64, True),  # smollm-135m's prefill, the main shape
+    (1, 2, 2, 100, 130, 192, False),  # non-causal at the MLA head dim
+    (1, 4, 2, 40, 300, 192, True),    # Sq < Sk at the MLA head dim
 ]
 
 
@@ -255,6 +260,10 @@ SSD_SHAPES = [                        # (B, H, G, S, P, N, chunk)
     (2, 8, 1, 64, 16, 16, 8),         # reduced mamba2
     (2, 80, 1, 2048, 64, 128, 64),    # mamba2-2.7b, B 2 x 2048
     (2, 80, 1, 2048, 64, 128, 128),   # the entry point's default chunk
+    (1, 4, 1, 64, 20, 24, 64),        # one chunk; P, N not multiples of 16
+    (2, 6, 3, 96, 16, 40, 96),        # chunk = S > 64: a ragged second tile
+    (1, 2, 1, 200, 8, 8, 100),        # chunk 100: tiles of 64, ragged last
+    (1, 4, 2, 48, 33, 17, 16),        # P, N odd: the element-wise paths
 ]
 
 
@@ -290,6 +299,27 @@ def test_ssd_kernel_matches_plain(cuda_device, B, H, G, S, P, N, chunk,
         torch.testing.assert_close(y.float(), y_r.float(), atol=tol,
                                    rtol=tol)
         torch.testing.assert_close(st, st_r, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_SHAPES)
+def test_ssd_kernel_stages_match_staged_plain(cuda_device, B, H, G, S, P, N,
+                                              chunk, dtype):
+    """Each stage of the kernel (the tiles' own states and decays, the
+    states entering each tile, the final state) against the staged plain
+    version on the same tiles of min(chunk, 64) rows."""
+    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    reset_launches()
+    got = ssd_scan_stages(xdt, dA, Bm, Cm, chunk=chunk)
+    _, st_r, want = ssd_chunk_parallel(xdt, dA, Bm, Cm, min(chunk, S, 64))
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 0
+    tol = SSD_TOL[dtype]
+    for name in ("decays", "chunk_states", "passed_states"):
+        assert got[name].shape == want[name].shape, name
+        torch.testing.assert_close(got[name], want[name], atol=tol, rtol=tol,
+                                   msg=name)
+    torch.testing.assert_close(got["final_state"], st_r, atol=tol, rtol=tol)
 
 
 def test_ssd_entry_point_model_layout(cuda_device):

@@ -372,6 +372,59 @@ def test_flash_ref_matches_pallas(B, H, Hkv, Sq, Sk, Dh, causal, dtype):
         np.testing.assert_allclose(got, jref, atol=tol, rtol=tol)
 
 
+def _flash_bf16_design(q, k, v, causal, block_k=64):
+    """The arithmetic of the bfloat16 tensor-core flash kernel: scores and
+    sums in float32 from bfloat16 operands, an online softmax over tiles of
+    ``block_k`` keys in the log2 domain, the row sum of the float32
+    probabilities, and P rounded to bfloat16 for the P V product."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // Hkv, dim=1)
+    v = v.float().repeat_interleave(H // Hkv, dim=1)
+    q = q.float()
+    scale = 1.4426950408889634 / np.sqrt(Dh)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, Dh))
+    qpos = torch.arange(Sq) + Sk - Sq
+    for k0 in range(0, Sk, block_k):
+        kpos = torch.arange(k0, min(Sk, k0 + block_k))
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, kpos]) * scale
+        if causal:
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p.bfloat16().float(), v[:, :, kpos])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", FLASH_CASES + [
+    (1, 2, 2, 100, 100, 192, True),   # the key tile of 32 at Dh 192, 256
+    (1, 2, 1, 65, 190, 256, True),
+    (1, 4, 2, 40, 300, 192, True),
+])
+def test_flash_bf16_rounding_of_p_holds_tolerance(B, H, Hkv, Sq, Sk, Dh,
+                                                  causal):
+    """Rounding P to bfloat16 before P V, as the tensor-core kernel does,
+    keeps the output within the reference's bfloat16 tolerance of the
+    Pallas kernel in interpret mode and of the reference's plain version."""
+    arrs = _qkv(B, H, Hkv, Sq, Sk, Dh)
+    jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrs)
+    got = _flash_bf16_design(tq, tk, tv, causal,
+                             block_k=64 if Dh <= 128 else 32)
+    got = got.float().numpy()
+    for want in (flash_attention_tpu(jq, jk, jv, causal=causal, block_q=32,
+                                     block_k=32, interpret=True),
+                 jax_flash_ref(jq, jk, jv, causal=causal)):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
+
+
 # -------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (130, 256),

@@ -37,8 +37,10 @@ from repro_torch.configs import base  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
-                                              ssd_scan_kernel)
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
+                                              ssd_scan_kernel,
+                                              ssd_scan_stages)
+from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
+    _segsum, ssd_chunk_parallel, ssd_scan_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -131,6 +133,111 @@ def test_ssd_plain_versions_match_pallas(B, H, G, S, P, N, chunk, dtype):
             _close(st, st_w, tol, f"{gname} state vs {wname}")
 
 
+# the reference's kernel-test shapes at chunks 8 to 64, and one wide
+# state over several tiles of 64
+SSD_STAGED_CASES = [
+    (1, 2, 1, 64, 16, 16, 8),
+    (1, 2, 1, 64, 16, 16, 16),
+    (2, 4, 2, 128, 32, 32, 32),
+    (2, 4, 2, 128, 32, 32, 64),
+    (1, 8, 1, 96, 64, 128, 32),
+    (1, 4, 1, 192, 64, 128, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_STAGED_CASES)
+def test_ssd_chunk_parallel_matches_pallas(B, H, G, S, P, N, chunk, dtype):
+    """The staged plain version (the CUDA kernel's three stages) against
+    the Pallas kernel in interpret mode and the exact recurrence."""
+    arrs = _kernel_inputs(B, H, G, S, P, N)
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    y, st, _ = ssd_chunk_parallel(*tx, chunk)
+    assert y.dtype == getattr(torch, dtype) and st.dtype == torch.float32
+    tol = SSD_TOL[dtype]
+    for name, (y_w, st_w) in {
+            "pallas": ssd_scan_tpu(*jx, chunk=chunk, interpret=True),
+            "exact": [t.float() for t in ssd_scan_ref(*tx)]}.items():
+        _close(y, y_w, tol, f"y vs {name}")
+        _close(st, st_w, tol, f"state vs {name}")
+
+
+@pytest.mark.parametrize("chunk", [8, 24, 64, 100])
+def test_ssd_chunk_parallel_stages_are_the_recurrence(chunk):
+    """Each stage's result is what the exact recurrence gives: a tile's
+    own state is the recurrence over that tile from zero, the state
+    entering tile c the recurrence over the first c tiles, the decay the
+    exponential of the tile's summed dA; S = 100 leaves a ragged last
+    tile for chunks 8, 24 and 64."""
+    arrs = [torch.from_numpy(a) for a in _kernel_inputs(2, 4, 2, 100, 8, 16)]
+    xdt, dA, Bm, Cm = arrs
+    y, st, stages = ssd_chunk_parallel(*arrs, chunk)
+    y_r, st_r = ssd_scan_ref(*arrs)
+    tol = SSD_TOL["float32"]
+    _close(y, y_r, tol)
+    _close(st, st_r, tol)
+    n_tiles = -(-100 // chunk)
+    assert stages["chunk_states"].shape == (2, 4, n_tiles, 8, 16)
+    for c in range(n_tiles):
+        lo, hi = c * chunk, min(100, (c + 1) * chunk)
+        tile = [t[:, :, lo:hi] for t in arrs]
+        _close(stages["chunk_states"][:, :, c], ssd_scan_ref(*tile)[1], tol,
+               f"chunk state {c}")
+        _close(stages["decays"][:, :, c], torch.exp(dA[:, :, lo:hi].sum(-1)),
+               tol, f"decay {c}")
+        before = (ssd_scan_ref(*[t[:, :, :lo] for t in arrs])[1] if lo
+                  else torch.zeros(2, 4, 8, 16))
+        _close(stages["passed_states"][:, :, c], before, tol,
+               f"passed state {c}")
+
+
+def _ssd_bf16_design(xdt, dA, B, C, chunk, round_state=False):
+    """The arithmetic of an SSD kernel that runs its products on the
+    tensor cores in bfloat16 with float32 sums: the chunked algorithm with
+    L o C B^T and the decayed xdt rounded to bfloat16 where they become
+    product operands, and, with ``round_state``, the state entering each
+    tile too.  Every other value is float32; inputs are bfloat16."""
+    r = lambda t: t.bfloat16().float()
+    b, H, S, P = xdt.shape
+    G, N = B.shape[1], B.shape[3]
+    nT, Q, rep = S // chunk, chunk, H // G
+    x = xdt.float().reshape(b, G, rep, nT, Q, P)
+    a = dA.float().reshape(b, G, rep, nT, Q)
+    Bc = B.float().reshape(b, G, 1, nT, Q, N)
+    Cc = C.float().reshape(b, G, 1, nT, Q, N)
+    cs = torch.cumsum(a, dim=-1)
+    own = r(x * torch.exp(cs[..., -1:] - cs)[..., None]).transpose(-1, -2) \
+        @ Bc
+    st = x.new_zeros((b, G, rep, P, N))
+    passed = []
+    for c in range(nT):
+        passed.append(st)
+        st = st * torch.exp(cs[..., c, -1])[..., None, None] + own[..., c, :, :]
+    h_in = torch.stack(passed, dim=3)
+    if round_state:
+        h_in = r(h_in)
+    scores = r((Cc @ Bc.transpose(-1, -2)) * torch.exp(_segsum(a)))
+    y = scores @ x + (Cc @ h_in.transpose(-1, -2)) * torch.exp(cs)[..., None]
+    return y.reshape(b, H, S, P).bfloat16(), st.reshape(b, H, P, N)
+
+
+@pytest.mark.parametrize("round_state", [False, True])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_STAGED_CASES)
+def test_ssd_bf16_roundings_hold_tolerance(B, H, G, S, P, N, chunk,
+                                           round_state):
+    """Rounding the tensor-core operands of a bfloat16 SSD kernel (L o C
+    B^T, the decayed xdt, and optionally the carried state) keeps the
+    result within the reference's bfloat16 tolerance of its oracle."""
+    arrs = _kernel_inputs(B, H, G, S, P, N)
+    jx = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+    tx = [torch.from_numpy(a).bfloat16() for a in arrs]
+    y, st = _ssd_bf16_design(*tx, chunk, round_state=round_state)
+    y_w, st_w = jax_ssd_ref(*jx, chunk=chunk)
+    _close(y, y_w, SSD_TOL["bfloat16"])
+    _close(st, st_w, SSD_TOL["bfloat16"])
+
+
 @pytest.mark.parametrize("S,chunk", [(64, 16), (96, 32), (48, 48)])
 def test_ssd_entry_point_matches_reference_entry_point(S, chunk):
     """Model layout: the port's ``ssd_scan`` (its chunked algorithm on the
@@ -189,6 +296,8 @@ def test_cpu_tensors_run_plain_version_without_launching():
     assert LAUNCHES["ssd_scan"] == 0
     with pytest.raises(ValueError):
         ssd_scan_kernel(*arrs, chunk=8, impl="kernel")
+    with pytest.raises(ValueError):
+        ssd_scan_stages(*arrs, chunk=8)
     with pytest.raises(ValueError):
         ssd_scan(*(torch.from_numpy(a)
                    for a in _model_inputs(1, 16, 2, 8, 1, 8)),

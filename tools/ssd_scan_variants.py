@@ -1,21 +1,33 @@
-"""Build variants of the ``ssd_scan`` CUDA source and compare them on the card.
+"""Build variants of a CUDA kernel source and compare them on the card.
 
-    python3 tools/ssd_scan_variants.py [SOURCE.cu ...]
+    python3 tools/ssd_scan_variants.py [--kernel ssd_scan|flash_attention]
+        [SOURCE.cu ...]
 
-Each source (by default the package's ``ssd_scan.cu``; every variant must
-export the same C entry points) is compiled alone with the port's ``nvcc``
-flags, and the wall time of that build and ptxas's register and spill
-report are printed.  Then every variant runs the same inputs: mamba2-2.7b's
-prefill scan (B 2, H 80, G 1, S 2048, P 64, N 128) at chunk 64 and 128 in
-float32 and at chunk 64 in bfloat16, and the reduced mamba2's (B 2, H 8,
-P 16, N 16, chunk 8).  Device times are CUDA events around 20 calls,
-median of 5, taken in the order first, ..., last, last, ..., first; each
-variant's figure is the mean of its two.  Outputs are compared with the
-first variant's.  One JSON line per build and per shape, then the card's
-name and power limit.  Needs a CUDA GPU and ``nvcc``.
+Each source (by default the package's own source of the kernel; every
+variant exports the kernel's C entry points) is compiled alone with the
+port's ``nvcc`` flags, and the wall time of that build and ptxas's register
+and spill report are printed.  Then every variant runs the same inputs:
+
+* ``ssd_scan``: mamba2-2.7b's prefill scan (B 2, H 80, G 1, S 2048, P 64,
+  N 128) at chunk 64 and 128 in float32 and bfloat16, and the reduced
+  mamba2's (B 2, H 8, P 16, N 16, chunk 8).  A source that exports
+  ``ssd_scan_workspace_floats`` takes the workspace and stage count of the
+  chunk-parallel interface; one that does not, the one-launch interface
+  that came before it.
+* ``flash_attention``: smollm-135m's prefill (2, 9, 3, 2048, 2048, 64)
+  causal in bfloat16 and float32, and the MLA-width (1, 16, 16, 1024,
+  1024, 192) causal in bfloat16.
+
+Device times are CUDA events around 20 calls, median of 5, taken in the
+order first, ..., last, last, ..., first; each variant's figure is the
+mean of its two.  Outputs are compared with the first variant's (largest
+absolute difference, and whether they are equal bit for bit).  One JSON
+line per build and per case, then the card's name and power limit.  Needs
+a CUDA GPU and ``nvcc``.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import re
@@ -29,14 +41,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-# (B, H, G, S, P, N, chunk, dtype)
-CASES = [(2, 80, 1, 2048, 64, 128, 64, "float32"),
-         (2, 80, 1, 2048, 64, 128, 128, "float32"),
-         (2, 80, 1, 2048, 64, 128, 64, "bfloat16"),
-         (2, 8, 1, 64, 16, 16, 8, "float32")]
+CASES = {
+    # (B, H, G, S, P, N, chunk, dtype)
+    "ssd_scan": [(2, 80, 1, 2048, 64, 128, 64, "float32"),
+                 (2, 80, 1, 2048, 64, 128, 128, "float32"),
+                 (2, 80, 1, 2048, 64, 128, 64, "bfloat16"),
+                 (2, 80, 1, 2048, 64, 128, 128, "bfloat16"),
+                 (2, 8, 1, 64, 16, 16, 8, "float32")],
+    # (B, H, Hkv, Sq, Sk, Dh, causal, dtype)
+    "flash_attention": [(2, 9, 3, 2048, 2048, 64, 1, "bfloat16"),
+                        (1, 16, 16, 1024, 1024, 192, 1, "bfloat16"),
+                        (2, 9, 3, 2048, 2048, 64, 1, "float32")],
+}
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 
-def build(src: Path, out_dir: Path, tag: str):
+def build(src: Path, out_dir: Path, tag: str, kernel: str):
     from repro_torch.kernels import _build
     out = out_dir / f"{tag}.so"
     t0 = time.perf_counter()
@@ -51,44 +71,82 @@ def build(src: Path, out_dir: Path, tag: str):
     spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
     print(json.dumps({"build": tag, "source": str(src), "nvcc_s": wall,
                       "instances": len(regs), "registers": regs,
-                      "spill_store_bytes": max(spills, default=0)}),
-          flush=True)
+                      "spill_store_bytes": spills}), flush=True)
     lib = ctypes.CDLL(str(out))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    if kernel == "flash_attention":
+        for name in ("flash_attention_f32", "flash_attention_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 4 + [_I64] * 6 + [ctypes.c_int, _P]
+            fn.restype = ctypes.c_int
+        return lib
+    staged = hasattr(lib, "ssd_scan_workspace_floats")
     for name in ("ssd_scan_f32", "ssd_scan_bf16"):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 7 \
-            + [ctypes.c_void_p]
+        fn.argtypes = ([_P] * 7 + [_I64] * 7 + [ctypes.c_int, _P] if staged
+                       else [_P] * 6 + [_I64] * 7 + [_P])
         fn.restype = ctypes.c_int
+    if staged:
+        lib.ssd_scan_workspace_floats.argtypes = [_I64] * 6
+        lib.ssd_scan_workspace_floats.restype = _I64
+    lib.staged = staged
     return lib
 
 
-def inputs(case):
+def inputs(kernel: str, case):
     import torch
     import torch.nn.functional as F
-    B, H, G, S, P, N, chunk, dt = case
-    tdt = getattr(torch, dt)
     g = torch.Generator(device="cuda").manual_seed(1)
     rand = lambda *s: torch.randn(s, generator=g, device="cuda")
+    tdt = getattr(torch, case[-1])
+    if kernel == "flash_attention":
+        B, H, Hkv, Sq, Sk, Dh, _, _ = case
+        return (rand(B, H, Sq, Dh).to(tdt), rand(B, Hkv, Sk, Dh).to(tdt),
+                rand(B, Hkv, Sk, Dh).to(tdt))
+    B, H, G, S, P, N, _, _ = case
     xdt = (rand(B, H, S, P) * 0.5).to(tdt)
     dA = -F.softplus(rand(B, H, S)) * 0.5
     Bm, Cm = ((rand(B, G, S, N) * 0.5).to(tdt) for _ in range(2))
     return xdt, dA, Bm, Cm
 
 
-def caller(lib, case, xdt, dA, Bm, Cm):
+def caller(lib, kernel: str, case, data):
+    """(run, outputs) of one variant on one case."""
     import torch
-    B, H, G, S, P, N, chunk, dt = case
-    fn = lib.ssd_scan_f32 if dt == "float32" else lib.ssd_scan_bf16
-    y = torch.empty_like(xdt)
-    st = torch.empty((B, H, P, N), dtype=torch.float32, device="cuda")
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    f32 = case[-1] == "float32"
+    if kernel == "flash_attention":
+        B, H, Hkv, Sq, Sk, Dh, causal, _ = case
+        q, k, v = data
+        o = torch.empty_like(q)
+        fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
+        args = lambda: (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        o.data_ptr(), B, H, Hkv, Sq, Sk, Dh, causal, stream())
+        outs = (o,)
+    else:
+        B, H, G, S, P, N, chunk, _ = case
+        xdt, dA, Bm, Cm = data
+        y = torch.empty_like(xdt)
+        st = torch.empty((B, H, P, N), dtype=torch.float32, device="cuda")
+        fn = lib.ssd_scan_f32 if f32 else lib.ssd_scan_bf16
+        head = (xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                y.data_ptr(), st.data_ptr())
+        dims = (B, H, G, S, P, N, chunk)
+        if lib.staged:
+            ws = torch.empty(lib.ssd_scan_workspace_floats(B, H, S, P, N,
+                                                           chunk),
+                             dtype=torch.float32, device="cuda")
+            args = lambda: (*head, ws.data_ptr(), *dims, 3, stream())
+        else:
+            args = lambda: (*head, *dims, stream())
+        outs = (y, st)
 
     def run():
-        err = fn(xdt.data_ptr(), dA.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), st.data_ptr(), B, H, G, S, P, N, chunk,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(*args())
         if err:
             raise RuntimeError(f"launch failed: {lib.error_string(err)}")
-    return run, y, st
+    return run, outs
 
 
 def device_ms(run, reps: int = 20, trials: int = 5) -> float:
@@ -115,28 +173,35 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    sources = [Path(a) for a in (argv if argv is not None else sys.argv[1:])] \
-        or [_build.SOURCES["ssd_scan"]]
-    out_dir = Path(tempfile.mkdtemp(prefix="ssd_variants_",
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(CASES), default="ssd_scan")
+    ap.add_argument("sources", nargs="*", type=Path)
+    args = ap.parse_args(argv)
+    sources = args.sources or [_build.SOURCES[args.kernel]]
+    out_dir = Path(tempfile.mkdtemp(prefix="variants_",
                                     dir=_build.BUILD_DIR.parent
                                     if _build.BUILD_DIR.parent.is_dir()
                                     else None))
-    libs = [build(src, out_dir, f"v{i}") for i, src in enumerate(sources)]
+    libs = [build(src, out_dir, f"v{i}", args.kernel)
+            for i, src in enumerate(sources)]
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
-    for case in CASES:
-        data = inputs(case)
-        runs = [caller(lib, case, *data) for lib in libs]
+    for case in CASES[args.kernel]:
+        data = inputs(args.kernel, case)
+        runs = [caller(lib, args.kernel, case, data) for lib in libs]
         times = {i: [] for i in range(len(libs))}
         for i in order:
             times[i].append(device_ms(runs[i][0]))
-        _, y0, st0 = runs[0]
-        for i, (_, y, st) in enumerate(runs):
-            diff = max(float((y.float() - y0.float()).abs().max()),
-                       float((st - st0).abs().max()))
-            print(json.dumps({"variant": f"v{i}", "case": list(case),
+        ref = runs[0][1]
+        for i, (_, outs) in enumerate(runs):
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(outs, ref))
+            equal = all(bool(torch.equal(a, b)) for a, b in zip(outs, ref))
+            print(json.dumps({"kernel": args.kernel, "variant": f"v{i}",
+                              "case": list(case),
                               "ms": statistics.mean(times[i]),
                               "ms_each": times[i],
-                              "max_abs_diff_vs_v0": diff}), flush=True)
+                              "max_abs_diff_vs_v0": diff,
+                              "bit_equal_to_v0": equal}), flush=True)
         del data, runs
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
