@@ -42,7 +42,17 @@ toolkit.  The script
    NumPy-seeded weights held to the reference package's logits
    (``EXPECTED_MAMBA2``); all 64 layers on a 2 x 2048-token forward, held
    to its plain-version forward; 8 decode steps from empty caches held to
-   that forward; and the serve driver.
+   that forward; and the serve driver;
+8. runs the paper's Section 5.2 experiment through the port's scenario
+   presets with every placement on ``cuda`` (the ``paper`` phase):
+   ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
+   batches x 100 instances, 16 faulty candidates, p_f 0.02) and for
+   64-rank LAMMPS (3 batches), each policy's completion times held bit for
+   bit to the reference package's (``EXPECTED_PAPER``), one more NPB-DT
+   batch under ``torch.profiler``; the scheduler's elastic re-placement of
+   a LAMMPS job whose node dies, held to ``EXPECTED_ELASTIC``; and the
+   nine other presets at ``fast=True``, each held to the same preset on
+   the CPU.
 
 Steps 5 to 7 run between steps 2 and 3; ``ssd_scan`` is checked with the
 other model kernels in step 5.  Each phase prints one JSON
@@ -91,6 +101,54 @@ EXPECTED = {
     "place/torus-16x16x16/alltoall-1024/healthy": 471755468750.0,
     "place/torus-32x32x16/npb_dt-1024/implicit": 149875200000.0,
     "place/fattree-k32/npb_dt-1024/faulty64": 128102400000.0,
+}
+
+# The paper's Section 5.2 experiment (paper phase): run_preset(
+# "paper-fig4-5") at the paper's protocol (8x8x8 torus, 10 batches x 100
+# instances, 16 faulty candidates per batch, p_f 0.02, seed 0) for 85-rank
+# NPB-DT, and for 64-rank LAMMPS cut to 3 batches.  Each policy's batch
+# completion times (simulated seconds), aborted attempts and event count,
+# as the reference package's preset returns them on its NumPy engine; the
+# test tests/test_torch_paper_expected.py recomputes them:
+#   PYTHONPATH=src python -m pytest -q tests/test_torch_paper_expected.py
+EXPECTED_PAPER = {
+    "npb_dt-85": {
+        "linear": {"batch_completions": [
+            22.891540000000017, 21.67606000000001, 22.081220000000013,
+            23.29670000000002, 21.270900000000008, 22.486380000000015,
+            20.258000000000003, 21.47348000000001, 21.67606000000001,
+            20.460580000000004], "aborted_attempts": 74, "n_events": 2148},
+        "tofa": {"batch_completions": [
+            15.642000000000024, 14.109999999999982, 14.10599999999999,
+            14.104000000000017, 16.154000000000035, 14.62000000000002,
+            14.62000000000002, 14.10599999999999, 15.130000000000042,
+            13.593999999999983], "aborted_attempts": 0, "n_events": 2000},
+    },
+    "lammps-64": {
+        "linear": {"batch_completions": [
+            69.37440799999993, 63.74945599999994, 66.87442933333327],
+            "aborted_attempts": 20, "n_events": 640},
+        "tofa": {"batch_completions": [
+            57.085866666666625, 56.85946666666676, 54.8870666666666],
+            "aborted_attempts": 0, "n_events": 600},
+    },
+}
+# the paper's TOFA improvement over Slurm's default placement
+PAPER_IMPROVEMENT = {"npb_dt-85": 0.31, "lammps-64": 0.189}
+# Elastic re-placement (examples/fault_tolerant_batch.py step 3) on a
+# fresh scheduler: 8x8x8 torus, one all-replied heartbeat round,
+# lammps_like(64) submitted under tofa, then the node under rank 10 dies.
+# The reference package's scheduler on its NumPy engine gives this victim,
+# hop-bytes before, and re-placement (recomputed by the same test).
+EXPECTED_ELASTIC = {
+    "victim": 10, "hop_bytes_before": 22338560000.0,
+    "hop_bytes": 22645760000.0, "provenance": "replace-incremental",
+    "placement": [
+        15, 7, 56, 0, 9, 3, 2, 1, 17, 11, 19, 18, 16, 8, 49, 25, 71, 113,
+        57, 121, 67, 123, 58, 122, 83, 75, 82, 146, 80, 73, 89, 81, 64,
+        120, 185, 65, 131, 130, 186, 129, 139, 74, 66, 138, 144, 136, 137,
+        145, 72, 79, 184, 128, 201, 202, 194, 193, 457, 458, 450, 449, 465,
+        456, 505, 448],
 }
 
 # The full-width smollm-135m forward (model phase) is held to the
@@ -539,6 +597,173 @@ def placement_phases() -> None:
         PlacementRequest(comm=npb1024, topology=ft32,
                          p_f=_faults(ft32.n_nodes, 64)),
         need=("fattree_hop",), warm=False)
+
+
+# -------------------------------------------------- the paper's experiment
+PAPER_FIELDS = ("batch_completions", "aborted_attempts", "n_events")
+
+
+def _without_wall_clock(x):
+    """A preset's result without its wall-clock ``place_time_s`` fields."""
+    if isinstance(x, dict):
+        return {k: _without_wall_clock(v) for k, v in x.items()
+                if k != "place_time_s"}
+    if isinstance(x, (list, tuple)):
+        return [_without_wall_clock(v) for v in x]
+    return x
+
+
+def host_eq1_seconds(run) -> tuple:
+    """``run()``'s result, and the seconds and calls it spent in the
+    host's Eq. 1 weight derivation: ``TorusTopology.weight_matrix`` (a
+    full derivation) and ``weight_matrix_update`` (the row-wise refresh
+    after a health change), timed by wrapping both for the call."""
+    from repro_torch.core.topology import TorusTopology
+
+    spent = {"weight_matrix": 0.0, "weight_matrix_update": 0.0}
+    calls = dict.fromkeys(spent, 0)
+    orig = {name: getattr(TorusTopology, name) for name in spent}
+
+    def timed(name):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*args, **kwargs)
+            finally:
+                spent[name] += time.perf_counter() - t0
+                calls[name] += 1
+        return wrapper
+
+    for name in spent:
+        setattr(TorusTopology, name, timed(name))
+    try:
+        out = run()
+    finally:
+        for name, fn in orig.items():
+            setattr(TorusTopology, name, fn)
+    return out, {"s": spent, "calls": calls}
+
+
+def paper_cell(cell: str, device, **kw) -> None:
+    """``paper-fig4-5`` for linear and tofa on ``device``, held bit for bit
+    to ``EXPECTED_PAPER[cell]``; prints mean completions, the TOFA
+    improvement beside the paper's, the mapper's seconds per policy, and
+    the launches of each kernel (the preset's sparse guests on a dense
+    512-node torus reach none), and the seconds and share of the cell's
+    wall time spent in the host's Eq. 1 weight derivation."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.sim.scenarios import run_preset
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out, eq1 = host_eq1_seconds(lambda: run_preset(
+        "paper-fig4-5", policies=("linear", "tofa"), seed=0, device=device,
+        **kw))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = out["policies"]
+    got = {pol: {k: rows[pol][k] for k in PAPER_FIELDS} for pol in rows}
+    imp = 1.0 - rows["tofa"]["mean_completion"] \
+        / rows["linear"]["mean_completion"]
+    ok = got == EXPECTED_PAPER[cell]
+    emit({"phase": f"paper/{cell}", "params": out["params"],
+          "mean_completion": {p: r["mean_completion"]
+                              for p, r in rows.items()},
+          "aborted_attempts": {p: r["aborted_attempts"]
+                               for p, r in rows.items()},
+          "tofa_improvement": imp, "paper_improvement": PAPER_IMPROVEMENT[cell],
+          "place_time_s": {p: r["place_time_s"] for p, r in rows.items()},
+          "host_eq1": eq1, "host_eq1_share": sum(eq1["s"].values()) / wall,
+          "wall_s": wall, "launches": dict(LAUNCHES), "ok": ok})
+    if not ok:
+        raise AssertionError(f"paper/{cell} differs from EXPECTED_PAPER")
+
+
+def elastic_phase(device) -> None:
+    """A scheduler on ``device`` places lammps_like(64) under tofa; the
+    node under rank 10 dies and ``engine.replace`` re-places the job.
+    Held to ``EXPECTED_ELASTIC``; the victim must be gone."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.scheduler import Job, Scheduler
+    from repro_torch.core.topology import TorusTopology
+    from repro_torch.workloads.patterns import lammps_like
+
+    t0 = time.perf_counter()
+    sch = Scheduler(TorusTopology((8, 8, 8)), device=device)
+    sch.heartbeat_round(np.ones(512, dtype=bool))
+    rec = sch.submit(Job(lammps_like(64), distribution="tofa"))
+    victim = int(rec.placement.placement[10])
+    before = rec.placement.hop_bytes
+    placed = rec.placement.placement.copy()
+    affected = sch.handle_node_failure([victim])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    plan = rec.placement
+    exp = EXPECTED_ELASTIC
+    ok = (victim == exp["victim"] and before == exp["hop_bytes_before"]
+          and len(affected) == 1 and rec.restarts == 1
+          and victim not in set(plan.placement.tolist())
+          and plan.placement.tolist() == exp["placement"]
+          and plan.hop_bytes == exp["hop_bytes"]
+          and plan.provenance == exp["provenance"])
+    emit({"phase": "paper/elastic-replace", "victim": victim,
+          "hop_bytes_before": before, "hop_bytes": plan.hop_bytes,
+          "provenance": plan.provenance, "restarts": rec.restarts,
+          "moved": int((plan.placement != placed).sum()),
+          "place_time_s": sch.place_time_s, "wall_s": wall, "ok": ok})
+    if not ok:
+        raise AssertionError("paper/elastic-replace differs from "
+                             "EXPECTED_ELASTIC")
+
+
+def presets_phase(device) -> None:
+    """The nine other presets at ``fast=True`` on ``device``, each held
+    bit for bit (wall-clock fields excepted) to the same preset run by
+    the port on the CPU."""
+    import torch
+    from repro_torch.sim.scenarios import SCENARIOS, run_preset
+
+    bad = []
+    for name in SCENARIOS:
+        if name == "paper-fig4-5":
+            continue
+        t0 = time.perf_counter()
+        got = run_preset(name, fast=True, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = run_preset(name, fast=True, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        ok = _without_wall_clock(got) == _without_wall_clock(want)
+        emit({"phase": f"paper/preset/{name}", "wall_s": wall,
+              "cpu_wall_s": cpu_wall, "ok": ok})
+        if not ok:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"presets differ between the card and the "
+                             f"CPU: {bad}")
+
+
+def paper_phase(device) -> None:
+    """The paper's Section 5.2 experiment on the port's engine on
+    ``device``: NPB-DT-85 at the full protocol, LAMMPS-64 at 3 batches,
+    one more NPB-DT batch under ``torch.profiler``, the elastic
+    re-placement, and the nine other presets at ``fast=True``."""
+    from repro_torch.sim.scenarios import run_preset
+    from repro_torch.workloads.patterns import lammps_like
+
+    t0 = time.perf_counter()
+    paper_cell("npb_dt-85", device)
+    paper_cell("lammps-64", device, n_batches=3,
+               wl_factory=lambda: lammps_like(64))
+    emit({"phase": "paper/npb_dt-85/profiled-batch", **profiled(
+        lambda: run_preset("paper-fig4-5", n_batches=1, device=device),
+        "paper_npb_dt-85_batch0")})
+    elastic_phase(device)
+    presets_phase(device)
+    emit({"phase": "paper/done", "s": time.perf_counter() - t0})
 
 
 # ------------------------------------------------------ model-stack kernels
@@ -1118,6 +1343,11 @@ def main() -> int:
         except Exception:                   # reported, and the run fails
             traceback.print_exc()
             failed.append("place")
+    try:
+        paper_phase("cuda")
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("paper")
     for name, n in MAIN_PATH_LAUNCHES.items():
         if n == 0:
             failed.append(f"{name} never launched on the main path")

@@ -296,6 +296,18 @@ class PlacementPlan:
             "wall_time_s": self.wall_time_s,
         }
 
+    def to_result(self):
+        """Legacy :class:`~repro_torch.core.tofa.PlacementResult` view
+        (shim)."""
+        from .tofa import PlacementResult
+        return PlacementResult(
+            placement=self.placement,
+            policy=self.policy,
+            used_consecutive_window=self.used_consecutive_window,
+            hop_bytes=self.hop_bytes,
+            faulty_nodes_used=self.faulty_nodes_used,
+        )
+
 
 class PlacementEngine:
     """Policy-pluggable, cache-backed placement service.
@@ -835,3 +847,18 @@ class PlacementEngine:
             wall_time_s=wall,
             provenance=provenance,
         )
+
+
+# one shared engine per requested device (None: the default, ``cuda``)
+_DEFAULT_ENGINES: dict = {}
+
+
+def default_engine(device: Optional[str] = None) -> PlacementEngine:
+    """Process-wide shared engine on ``device`` (used by the legacy shims
+    so repeated ``place()`` calls still benefit from matrix caching).
+    ``device=None`` means ``cuda``: without a GPU it raises
+    :class:`~repro_torch.core.backend.BackendUnavailableError`."""
+    eng = _DEFAULT_ENGINES.get(device)
+    if eng is None:
+        eng = _DEFAULT_ENGINES[device] = PlacementEngine(device=device)
+    return eng

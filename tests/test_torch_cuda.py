@@ -16,7 +16,8 @@ versions within the reference's kernel-test tolerances (2e-5 in float32,
 2e-2 in bfloat16), the SSD scan kernel within that test's 5e-5 / 5e-2 to
 the exact recurrence and to the chunked algorithm, and the models'
 forwards through the kernels to their forwards through the plain
-versions within 1e-4.
+versions within 1e-4.  Two scenario presets with their placements on the
+card must return what they return with their placements on the CPU.
 """
 import numpy as np
 import pytest
@@ -378,3 +379,24 @@ def test_mamba2_serve_main_on_card(cuda_device, capsys, dtype):
                        "--prompt-len", "8", "--gen", "4",
                        "--dtype", dtype]) == 0
     assert capsys.readouterr().out.count("\n") == 3
+
+
+def _without_wall_clock(x):
+    if isinstance(x, dict):
+        return {k: _without_wall_clock(v) for k, v in x.items()
+                if k != "place_time_s"}
+    if isinstance(x, (list, tuple)):
+        return [_without_wall_clock(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize("name", ["paper-fig4-5", "saturated-queue"])
+def test_fast_preset_on_card_equals_cpu(cuda_device, name):
+    """A scenario preset whose placements run on the card returns what
+    the same preset returns with its placements on the CPU, wall-clock
+    fields excepted."""
+    from repro_torch.sim.scenarios import run_preset
+
+    got = run_preset(name, fast=True, device="cuda")
+    want = run_preset(name, fast=True, device="cpu")
+    assert _without_wall_clock(got) == _without_wall_clock(want)

@@ -54,6 +54,9 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.launch.serve, repro_torch.train.data\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.workloads\n"
+        "import repro_torch.sim.scenarios, repro_torch.sim.batchsim\n"
+        "import repro_torch.cluster.scheduler, repro_torch.beliefs\n"
+        "import repro_torch.core.tofa, repro_torch.core.dragonfly\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")
