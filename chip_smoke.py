@@ -52,7 +52,21 @@ toolkit.  The script
    batch under ``torch.profiler``; the scheduler's elastic re-placement of
    a LAMMPS job whose node dies, held to ``EXPECTED_ELASTIC``; and the
    nine other presets at ``fast=True``, each held to the same preset on
-   the CPU.
+   the CPU;
+9. runs the port's online placement service and replica engine with the
+   engine on ``cuda`` (the ``service`` phase): the reference's full
+   request storm (6x6x6 torus, 600 requests at 10/s, 24 flaky nodes
+   failing 4 at a time every 5 s) for ``tofa`` and ``linear``, every
+   simulated field held to the reference's (``EXPECTED_STORM``), tofa's
+   cache hit rate at least 0.90 and its p99 completion below linear's,
+   with placements per second reported beside the reference's CPU floor
+   and the first 30 requests profiled; ``run_replicas("fat-tree",
+   n_replicas=32, fast=True)`` held to the reference test's pinned
+   statistics and to standalone presets, and four vectorized
+   ``paper-fig4-5`` replicas to the event path; and ``compare_policies``
+   / ``assign_devices`` on a two-pod fabric with degraded chips, held to
+   the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
+   guest must launch ``swap_select``.
 
 Steps 5 to 7 run between steps 2 and 3; ``ssd_scan`` is checked with the
 other model kernels in step 5.  Each phase prints one JSON
@@ -766,6 +780,345 @@ def paper_phase(device) -> None:
     emit({"phase": "paper/done", "s": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------- the placement service
+# The reference's request storm (benchmarks/serve_storm.py, run_storm) at its
+# full size and at its fast size: a torus, Poisson arrivals, one third
+# interactive replica sets (2 replicas x 3 KV shards of 2e8 B, 60 s
+# deadline slack), one third standard and one third best-effort elastic
+# jobs from mixed_size_factory((8, 12, 18)); flaky nodes (belief 0.3)
+# going down every 5 s, repaired 15 s later; drain interval 0.25 s,
+# heartbeats every 0.5 s, belief jitter 0.3.
+STORM_FULL = {"dims": (6, 6, 6), "n_req": 600, "rate": 10.0, "n_flaky": 24,
+              "per_event": 4, "seed": 0}
+STORM_FAST = {"dims": (4, 4, 4), "n_req": 150, "rate": 5.0, "n_flaky": 8,
+              "per_event": 1, "seed": 0}
+# a storm row's wall-clock fields, and the process-wide epoch counter (it
+# counts every state minted in the process, so it depends on what ran
+# before): every other field is simulated and held exactly
+STORM_NOT_HELD = ("place_wall_s", "placements_per_sec", "wall_time_s",
+                  "epoch")
+STORM_MIN_HIT_RATE = 0.90
+# requests of the storm's profiled slice: the profiler keeps every op, and
+# its tables over the first 100 requests took minutes to build on a CPU
+STORM_PROFILED = 30
+# the reference's storm gate on placements per second (serve_storm.py
+# MIN_PLACEMENTS_PER_SEC), set for its NumPy engine on a CPU: reported
+# beside the card's figure, not applied to it
+REFERENCE_CPU_FLOOR = 50.0
+# Each policy's simulated row of the full storm, as the reference's
+# PlacementService on its NumPy engine returns it; recomputed by
+#   PYTHONPATH=src python -m pytest -q \
+#     tests/test_torch_service.py::test_expected_storm_is_the_reference
+EXPECTED_STORM = {
+    "tofa": {
+        "submitted": 600, "placed": 600, "completed": 600, "shed": 0,
+        "rejected": 0, "failed": 0, "preempted": 0, "requeued": 0,
+        "replaced": 0, "replace_skipped": 53, "resized": 0,
+        "drain_ticks": 173, "failure_events": 23, "heartbeats": 260,
+        "admission_p50_s": 0.18074382310902593, "admission_p99_s": 0.25,
+        "admission_mean_s": 0.1645118102146179,
+        "completion_p50_s": 0.48176722026708063,
+        "completion_p99_s": 0.9175738666666664, "peak_queue_depth": 0,
+        "mean_queue_depth": 0.0, "makespan_s": 130.0, "n_events": 1679,
+        "hit_rate": 0.9774436090225563},
+    "linear": {
+        "submitted": 600, "placed": 600, "completed": 600, "shed": 0,
+        "rejected": 0, "failed": 0, "preempted": 0, "requeued": 0,
+        "replaced": 16, "replace_skipped": 53, "resized": 0,
+        "drain_ticks": 173, "failure_events": 23, "heartbeats": 260,
+        "admission_p50_s": 0.18074382310902593, "admission_p99_s": 0.25,
+        "admission_mean_s": 0.1645118102146179,
+        "completion_p50_s": 0.7221853407130325,
+        "completion_p99_s": 1.8256507328242548, "peak_queue_depth": 0,
+        "mean_queue_depth": 0.0, "makespan_s": 130.0, "n_events": 1695,
+        "hit_rate": 0.961038961038961},
+}
+# tests/test_replicas.py's PINNED summary of run_replicas("fat-tree",
+# n_replicas=32, fast=True): summary(B=1000, seed=0) of each policy and
+# compare(B=1000, seed=0), held at rel 1e-9
+PINNED_REPLICAS = {
+    "tofa_mean": 0.90792345,
+    "tofa_ci_low": 0.8037965361979167,
+    "tofa_ci_high": 1.02415233,
+    "linear_mean": 1.0694688874999998,
+    "win_rate": 0.78125,
+    "delta": 0.16154543749999997,
+}
+# compare_policies (every registered policy, request seed 0) and
+# assign_devices(policy="tofa", rng=np.random.default_rng(0)) on
+# Fabric(pod_dims=(4, 4), n_pods=2) with chips 5 and 21 DEGRADED at p_f
+# 0.05: hop-bytes per policy, and the assignment's linear and placed
+# hop-bytes, as the reference's NumPy engine returns them; recomputed by
+#   PYTHONPATH=src python -m pytest -q \
+#     tests/test_torch_placement.py::test_expected_fabric_is_the_reference
+FABRIC_DEGRADED = (5, 21)
+EXPECTED_FABRIC = {
+    "alltoall-16": {
+        "compare": {"linear": 1600000000.0, "random": 5562500000.0,
+                    "greedy": 1600000000.0, "topo": 1600000000.0,
+                    "tofa": 5200000000.0, "tofa-ml": 5200000000.0},
+        "hop_bytes_linear": 1600000000.0, "hop_bytes_placed": 5200000000.0},
+    "npb_dt-16": {
+        "compare": {"linear": 1305600000.0, "random": 4403200000.0,
+                    "greedy": 896000000.0, "topo": 704000000.0,
+                    "tofa": 1369600000.0, "tofa-ml": 1369600000.0},
+        "hop_bytes_linear": 1305600000.0, "hop_bytes_placed": 1369600000.0},
+}
+
+
+def build_stream(n_req: int, rate: float, seed: int,
+                 deadline_slack: float = 60.0) -> list:
+    """The storm's requests, built with the port's service: a copy of the
+    reference's ``benchmarks/serve_storm.py`` ``build_stream``."""
+    import numpy as np
+    from repro_torch.service import (SLOClass, elastic_request,
+                                     replica_request)
+    from repro_torch.workloads.arrivals import (mixed_size_factory,
+                                                poisson_stream)
+
+    rng = np.random.default_rng(seed)
+    specs = poisson_stream(mixed_size_factory((8, 12, 18)), rate, n_req,
+                           rng, max_duration=None)
+    reqs = []
+    for i, spec in enumerate(specs):
+        t = spec.submit_time
+        if i % 3 == 0:
+            reqs.append(replica_request(
+                shard_bytes=2e8, n_replicas=2, shards_per_replica=3,
+                slo=SLOClass.INTERACTIVE, submit_time=t,
+                deadline=t + deadline_slack))
+        elif i % 3 == 1:
+            reqs.append(elastic_request(spec.workload,
+                                        slo=SLOClass.STANDARD,
+                                        submit_time=t))
+        else:
+            reqs.append(elastic_request(spec.workload,
+                                        slo=SLOClass.BEST_EFFORT,
+                                        submit_time=t))
+    return reqs
+
+
+def build_churn(topo, n_flaky: int, seed: int, horizon: float,
+                churn_every: float, repair_after: float,
+                per_event: int = 1):
+    """Flaky nodes (from the busiest half of the id range), their belief
+    vector, and the failure / recovery schedule: a copy of the reference's
+    ``benchmarks/serve_storm.py`` ``build_churn``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed * 211 + 7)
+    flaky = np.sort(rng.choice(topo.n_nodes // 2, n_flaky, replace=False))
+    belief = np.zeros(topo.n_nodes)
+    belief[flaky] = 0.3
+    failures, recoveries = [], []
+    t = churn_every
+    k = 0
+    while t < horizon:
+        victims = [int(flaky[(k + j) % len(flaky)])
+                   for j in range(per_event)]
+        failures.append((t, victims))
+        recoveries.append((t + repair_after, victims))
+        t += churn_every
+        k += per_event
+    return flaky, belief, failures, recoveries
+
+
+def run_storm(cfg: dict, device, policies=("tofa", "linear"),
+              n_first=None) -> dict:
+    """The storm ``cfg`` through the port's ``PlacementService`` with its
+    engine on ``device``, one fresh service per policy on identical
+    streams and churn: ``{policy: ServiceResult}``.  ``n_first`` keeps
+    only the stream's first requests (the churn stays the full run's)."""
+    from repro_torch.core.topology import TorusTopology
+    from repro_torch.service import PlacementService
+
+    topo = TorusTopology(cfg["dims"])
+    _, belief, failures, recoveries = build_churn(
+        topo, n_flaky=cfg["n_flaky"], seed=cfg["seed"],
+        horizon=cfg["n_req"] / cfg["rate"] + 60.0, churn_every=5.0,
+        repair_after=15.0, per_event=cfg["per_event"])
+    out = {}
+    for policy in policies:
+        svc = PlacementService(topo, policy=policy, seed=cfg["seed"],
+                               drain_interval=0.25, restart_delay=1.0,
+                               device=device)
+        reqs = build_stream(cfg["n_req"], cfg["rate"], cfg["seed"])
+        out[policy] = svc.run(reqs[:n_first], failures=failures,
+                              recoveries=recoveries, heartbeat_interval=0.5,
+                              belief=belief, belief_jitter=0.3)
+    return out
+
+
+def simulated(row: dict) -> dict:
+    """A storm row without its wall-clock fields and epoch counter."""
+    return {k: v for k, v in row.items() if k not in STORM_NOT_HELD}
+
+
+def storm_phase(device) -> None:
+    """The reference's full storm on the port's service with the engine on
+    ``device``: every simulated field of each policy's row equal to
+    ``EXPECTED_STORM``, tofa's cache hit rate at least 0.90 and its p99
+    completion below linear's.  Reports each policy's placements per
+    second beside the reference's CPU floor, and tofa on the first
+    ``STORM_PROFILED`` requests once more under ``torch.profiler`` for the
+    device's idle share."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_storm(STORM_FULL, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    rows = {p: r.row for p, r in results.items()}
+    held = {p: simulated(r) == EXPECTED_STORM[p] for p, r in rows.items()}
+    hit_ok = rows["tofa"]["hit_rate"] >= STORM_MIN_HIT_RATE
+    p99_ok = (rows["tofa"]["completion_p99_s"]
+              < rows["linear"]["completion_p99_s"])
+    pps = {p: r["placements_per_sec"] for p, r in rows.items()}
+    prof = profiled(lambda: run_storm(STORM_FULL, device, policies=("tofa",),
+                                      n_first=STORM_PROFILED),
+                    f"service_storm_first{STORM_PROFILED}")
+    ok = all(held.values()) and hit_ok and p99_ok
+    emit({"phase": "service/storm", "dims": STORM_FULL["dims"],
+          "n_requests": STORM_FULL["n_req"], "held": held,
+          "hit_rate": {p: r["hit_rate"] for p, r in rows.items()},
+          "completion_p99_s": {p: r["completion_p99_s"]
+                               for p, r in rows.items()},
+          "placed": {p: r["placed"] for p, r in rows.items()},
+          "replaced": {p: r["replaced"] for p, r in rows.items()},
+          "place_wall_s": {p: r["place_wall_s"] for p, r in rows.items()},
+          "placements_per_sec": pps,
+          "reference_cpu_floor": REFERENCE_CPU_FLOOR,
+          "tofa_at_reference_cpu_floor": pps["tofa"] >= REFERENCE_CPU_FLOOR,
+          "run_wall_s": {p: r["wall_time_s"] for p, r in rows.items()},
+          "wall_s": wall, "launches": launches,
+          "profiled_tofa": {"n_first": STORM_PROFILED, **prof}, "ok": ok})
+    if not ok:
+        bad = {p: {k: (v, EXPECTED_STORM[p].get(k))
+                   for k, v in simulated(r).items()
+                   if v != EXPECTED_STORM[p].get(k)}
+               for p, r in rows.items()}
+        raise AssertionError(f"service/storm failed: held={held} "
+                             f"hit={hit_ok} p99={p99_ok} diff={bad}")
+
+
+def replicas_phase(device) -> None:
+    """``run_replicas("fat-tree", n_replicas=32, fast=True)`` on
+    ``device``: its summary statistics held to ``PINNED_REPLICAS`` at rel
+    1e-9, replicas 0 and 31 to standalone ``run_preset`` calls; then four
+    ``paper-fig4-5`` replicas, vectorized, held to the event path."""
+    import os
+
+    import numpy as np
+    import torch
+    from repro_torch.core.backend import resolve_device
+    from repro_torch.sim.replicas import (_flat_policy_rows, choose_executor,
+                                          run_replicas)
+    from repro_torch.sim.scenarios import run_preset
+
+    n = 32
+    executor = choose_executor("auto", resolve_device(device),
+                               os.cpu_count() or 1, n)
+    t0 = time.perf_counter()
+    rs = run_replicas("fat-tree", n_replicas=n, fast=True, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s_tofa = rs.summary("tofa", B=1000, seed=0)
+    s_lin = rs.summary("linear", B=1000, seed=0)
+    cmp = rs.compare(B=1000, seed=0)
+    got = {"tofa_mean": s_tofa.mean, "tofa_ci_low": s_tofa.ci_low,
+           "tofa_ci_high": s_tofa.ci_high, "linear_mean": s_lin.mean,
+           "win_rate": cmp.win_rate, "delta": cmp.delta}
+    pinned_ok = all(math.isclose(got[k], v, rel_tol=1e-9)
+                    for k, v in PINNED_REPLICAS.items())
+    standalone_ok = True
+    for k in (0, n - 1):
+        rows = _flat_policy_rows(run_preset("fat-tree", seed=k, fast=True,
+                                            device=device))
+        standalone_ok &= all(rs.metrics[pol][m][k] == v
+                             for pol, row in rows.items()
+                             for m, v in row.items() if m != "place_time_s")
+    t1 = time.perf_counter()
+    vec = run_replicas("paper-fig4-5", n_replicas=4, fast=True,
+                       device=device)
+    t2 = time.perf_counter()
+    evt = run_replicas("paper-fig4-5", n_replicas=4, fast=True,
+                       device=device, vectorize="never")
+    t3 = time.perf_counter()
+    vector_ok = all(np.array_equal(vec.metrics[pol][m], evt.metrics[pol][m])
+                    for pol in vec.metrics for m in vec.metrics[pol]
+                    if m != "place_time_s")
+    ok = pinned_ok and standalone_ok and vector_ok
+    emit({"phase": "service/replicas", "preset": "fat-tree", "n_replicas": n,
+          "executor": executor, "wall_s": wall, "summary": got,
+          "pinned_ok": pinned_ok, "standalone_ok": standalone_ok,
+          "paper_vectorized_s": t2 - t1, "paper_event_s": t3 - t2,
+          "vector_ok": vector_ok, "ok": ok})
+    if not ok:
+        raise AssertionError("service/replicas failed its check")
+
+
+def fabric_phase(device) -> None:
+    """``compare_policies`` and ``assign_devices(policy="tofa")`` on a
+    two-pod fabric with two DEGRADED chips, for a dense guest (all-to-all:
+    the ``swap_select`` branch) and a sparse one (NPB-DT): hop-bytes equal
+    to ``EXPECTED_FABRIC``; ``swap_select`` must have launched on the
+    dense cell, and its launches count towards the main path."""
+    import numpy as np
+    import torch
+    from repro_torch.core.placement import (Fabric, assign_devices,
+                                            compare_policies)
+    from repro_torch.core.state import ClusterState, NodeHealth
+    from repro_torch.kernels import reset_launches
+    from repro_torch.workloads.patterns import alltoall_heavy, npb_dt_like
+
+    fabric = Fabric(pod_dims=(4, 4), n_pods=2)
+    p_f = np.zeros(fabric.n_chips)
+    p_f[list(FABRIC_DEGRADED)] = 0.05
+    state = ClusterState.healthy(fabric.n_chips).with_health(
+        list(FABRIC_DEGRADED), NodeHealth.DEGRADED).with_outage(p_f)
+    bad = []
+    for cell, wl, need in (("alltoall-16", alltoall_heavy(16), True),
+                           ("npb_dt-16", npb_dt_like(16, seed=3), False)):
+        exp = EXPECTED_FABRIC[cell]
+        reset_launches()
+        t0 = time.perf_counter()
+        report = compare_policies(wl.comm, fabric, state=state,
+                                  device=device)
+        assignment = assign_devices(wl.comm, fabric, policy="tofa",
+                                    state=state,
+                                    rng=np.random.default_rng(0),
+                                    device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _count_path(("swap_select",))
+        got = {pol: r["hop_bytes"] for pol, r in report.items()}
+        perm = assignment.permutation
+        ok = (got == exp["compare"]
+              and assignment.hop_bytes_linear == exp["hop_bytes_linear"]
+              and assignment.hop_bytes_placed == exp["hop_bytes_placed"]
+              and len(set(perm.tolist())) == len(perm)
+              and 0 <= perm.min() and perm.max() < fabric.n_chips
+              and (launches["swap_select"] > 0 or not need))
+        emit({"phase": f"service/fabric/{cell}", "compare": got,
+              "hop_bytes_linear": assignment.hop_bytes_linear,
+              "hop_bytes_placed": assignment.hop_bytes_placed,
+              "improvement": assignment.improvement,
+              "faulty_nodes_used": assignment.plan.faulty_nodes_used,
+              "launches": launches, "needs_swap_select": need,
+              "wall_s": wall, "ok": ok})
+        if not ok:
+            bad.append(cell)
+    if bad:
+        raise AssertionError(f"service/fabric failed: {bad}")
+
+
+SERVICE_CELLS = (("storm", storm_phase), ("replicas", replicas_phase),
+                 ("fabric", fabric_phase))
+
+
 # ------------------------------------------------------ model-stack kernels
 # the reference's kernel-test tolerances (tests/test_kernels.py TOL)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1279,6 +1632,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1348,6 +1702,14 @@ def main() -> int:
     except Exception:                       # reported, and the run fails
         traceback.print_exc()
         failed.append("paper")
+    t0 = time.perf_counter()
+    for name, cell in SERVICE_CELLS:
+        try:
+            cell("cuda")
+        except Exception:                   # reported, and the run fails
+            traceback.print_exc()
+            failed.append(f"service/{name}")
+    emit({"phase": "service/done", "s": time.perf_counter() - t0})
     for name, n in MAIN_PATH_LAUNCHES.items():
         if n == 0:
             failed.append(f"{name} never launched on the main path")
@@ -1359,6 +1721,7 @@ def main() -> int:
         failed.append("kernels/main-shape")
 
     records.update(model_recs)
+    emit({"phase": "total", "s": time.perf_counter() - t_start})
     summary = []
     for name, meta in KERNELS.items():
         rec = records.get(name, {})

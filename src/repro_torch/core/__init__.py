@@ -10,3 +10,6 @@ from repro_torch.core.policies import (PlacementPolicy, PolicyContext,
                                        PolicyOutput, available_policies,
                                        get_policy, register_policy)
 from repro_torch.core.tofa import tofa_place, place, PlacementResult, POLICIES
+from repro_torch.core.placement import (Fabric, assign_devices,
+                                        compare_policies)
+from repro_torch.core.profiler import profile_hlo, comm_graph_from_hlo

@@ -9,7 +9,7 @@ exposure, wall-time) comes out.
 
 Policies are classes registered in :mod:`repro_torch.core.policies`; hosts are
 anything satisfying the :class:`Topology` protocol (``TorusTopology``,
-``FatTreeTopology``, ...).  The engine caches hop and Eq. 1
+``Fabric``, ``FatTreeTopology``, ...).  The engine caches hop and Eq. 1
 weight matrices per ``(topology, state key)`` — the state key is the
 snapshot's monotonic *epoch* (plus an overlay digest for derived views),
 so schedulers and batch simulators that place thousands of jobs against
@@ -42,6 +42,7 @@ from typing import (Any, Iterable, Optional, Protocol, Sequence, Union,
                     runtime_checkable)
 
 import numpy as np
+import torch
 
 from . import backend as _backend
 from .comm_graph import CommGraph
@@ -92,8 +93,10 @@ class Topology(Protocol):
     """Host-fabric protocol: anything exposing these can be placed onto.
 
     Implementations in-tree: :class:`~repro_torch.core.topology.TorusTopology`
-    (d-dim torus with dimension-ordered routing) and
-    :class:`~repro_torch.core.fattree.FatTreeTopology` (k-ary Clos).
+    (d-dim torus with dimension-ordered routing),
+    :class:`~repro_torch.core.placement.Fabric` (per-pod torus + a
+    cross-pod hop layer), :class:`~repro_torch.core.fattree.FatTreeTopology`
+    (k-ary Clos).
     Topologies may additionally implement
     ``weight_matrix_update(W_prev, changed, p_f, straggler=...)`` to
     refresh only the entries a small health delta invalidates.
@@ -849,7 +852,8 @@ class PlacementEngine:
         )
 
 
-# one shared engine per requested device (None: the default, ``cuda``)
+# one shared engine per device, keyed by the resolved device (``None``,
+# ``"cuda"``, ``"cuda:0"`` and ``torch.device("cuda")`` name one card)
 _DEFAULT_ENGINES: dict = {}
 
 
@@ -857,8 +861,12 @@ def default_engine(device: Optional[str] = None) -> PlacementEngine:
     """Process-wide shared engine on ``device`` (used by the legacy shims
     so repeated ``place()`` calls still benefit from matrix caching).
     ``device=None`` means ``cuda``: without a GPU it raises
-    :class:`~repro_torch.core.backend.BackendUnavailableError`."""
-    eng = _DEFAULT_ENGINES.get(device)
+    :class:`~repro_torch.core.backend.BackendUnavailableError`.  Every
+    spelling of one device returns the same engine."""
+    dev = _backend.resolve_device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    eng = _DEFAULT_ENGINES.get(dev)
     if eng is None:
-        eng = _DEFAULT_ENGINES[device] = PlacementEngine(device=device)
+        eng = _DEFAULT_ENGINES[dev] = PlacementEngine(device=str(dev))
     return eng

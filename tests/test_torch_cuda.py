@@ -16,8 +16,10 @@ versions within the reference's kernel-test tolerances (2e-5 in float32,
 2e-2 in bfloat16), the SSD scan kernel within that test's 5e-5 / 5e-2 to
 the exact recurrence and to the chunked algorithm, and the models'
 forwards through the kernels to their forwards through the plain
-versions within 1e-4.  Two scenario presets with their placements on the
-card must return what they return with their placements on the CPU.
+versions within 1e-4.  Two scenario presets, the placement service's
+fast storm and four fat-tree replicas with their placements on the card
+must return what they return with their placements on the CPU, and every
+spelling of the card must give one shared default engine.
 """
 import numpy as np
 import pytest
@@ -400,3 +402,50 @@ def test_fast_preset_on_card_equals_cpu(cuda_device, name):
     got = run_preset(name, fast=True, device="cuda")
     want = run_preset(name, fast=True, device="cpu")
     assert _without_wall_clock(got) == _without_wall_clock(want)
+
+
+@pytest.mark.parametrize("spelling", [None, "cuda", "cuda:0",
+                                      torch.device("cuda"),
+                                      torch.device("cuda", 0)])
+def test_default_engine_one_per_card(cuda_device, spelling):
+    """``None``, ``"cuda"``, ``"cuda:0"`` and the ``torch.device`` forms
+    name one card: one shared engine, on that card."""
+    from repro_torch.core.engine import default_engine
+
+    eng = default_engine(spelling)
+    assert eng is default_engine(None) is default_engine("cuda:0")
+    assert eng.backend.device.type == "cuda"
+
+
+def test_fast_storm_on_card_equals_cpu(cuda_device):
+    """The storm of the placement service at its fast size with the
+    engine on the card returns every simulated field and the placement
+    log it returns with the engine on the CPU."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    got = chip_smoke.run_storm(chip_smoke.STORM_FAST, device="cuda")
+    want = chip_smoke.run_storm(chip_smoke.STORM_FAST, device="cpu")
+    for policy, res in got.items():
+        assert chip_smoke.simulated(res.row) == \
+            chip_smoke.simulated(want[policy].row), policy
+        assert [n for _, n in res.placement_log] == \
+            [n for _, n in want[policy].placement_log]
+
+
+def test_replicas_on_card_equal_cpu(cuda_device):
+    """Four fat-tree replicas with their engines on the card (the serial
+    executor ``auto`` picks there) equal the same replicas on the CPU."""
+    from repro_torch.sim.replicas import run_replicas
+
+    got = run_replicas("fat-tree", n_replicas=4, fast=True, device="cuda")
+    want = run_replicas("fat-tree", n_replicas=4, fast=True, device="cpu",
+                        executor="serial")
+    for pol, metrics in want.metrics.items():
+        for k, v in metrics.items():
+            if k != "place_time_s":
+                assert np.array_equal(got.metrics[pol][k], v), (pol, k)

@@ -191,3 +191,119 @@ def test_float32_engine_valid_placement():
     assert plan.placement.dtype.kind == "i"
     assert len(set(plan.placement.tolist())) == 24
     assert plan.hop_bytes <= want.hop_bytes * 1.10
+
+
+# The float32 contract of the engine: every policy's placement with the
+# port's float32 torch backend equals the reference engine's on its jax
+# float32 backend.  The reference side runs in a subprocess, since
+# ``backend.use("jax", dtype="float32")`` rebinds a module global of the
+# reference package.
+F32_ENGINE_PROGRAM = """\
+import json
+import numpy as np
+from repro.core import backend
+from repro.core.engine import PlacementEngine, PlacementRequest
+from repro.core.fattree import FatTreeTopology
+from repro.core.topology import TorusTopology
+from repro.workloads.patterns import npb_dt_like
+
+out = {}
+with backend.use("jax", dtype="float32"):
+    for name, topo in (("torus", TorusTopology((4, 4, 4))),
+                       ("fattree", FatTreeTopology(8))):
+        for faulty in (False, True):
+            p_f = None
+            if faulty:
+                p_f = np.zeros(topo.n_nodes)
+                p_f[np.random.default_rng(5).choice(
+                    topo.n_nodes, 6, replace=False)] = 0.1
+            req = PlacementRequest(comm=npb_dt_like(24).comm, topology=topo,
+                                   p_f=p_f)
+            for policy in ("linear", "greedy", "topo", "tofa", "tofa-ml"):
+                plan = PlacementEngine().place(req, policy=policy,
+                                               rng=np.random.default_rng(0))
+                out[f"{name}/{faulty}/{policy}"] = [
+                    np.asarray(plan.placement).tolist(), plan.hop_bytes]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_f32_plans():
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", F32_ENGINE_PROGRAM],
+                         capture_output=True, text=True, env=env,
+                         timeout=600, check=True)
+    return json.loads(out.stdout)
+
+
+@pytest.mark.parametrize("name,ref_topo,host_kw", HOSTS)
+@pytest.mark.parametrize("faulty", [False, True])
+@pytest.mark.parametrize("policy", ["linear", "greedy", "topo", "tofa",
+                                    "tofa-ml"])
+def test_float32_engine_equals_reference_jax(jax_f32_plans, name, ref_topo,
+                                             host_kw, faulty, policy):
+    _, req = _pair(ref_topo, host_kw, 24, faulty)
+    with backend.use("torch", dtype="float32", device="cpu"):
+        plan = PlacementEngine(backend=None).place(
+            req, policy=policy, rng=np.random.default_rng(0))
+    placement, hop_bytes = jax_f32_plans[f"{name}/{faulty}/{policy}"]
+    assert np.array_equal(plan.placement, placement)
+    np.testing.assert_allclose(plan.hop_bytes, hop_bytes, rtol=1e-6)
+
+
+def _paper_fast_batch0(lammps):
+    """The request of ``paper-fig4-5``'s first batch at ``fast=True``
+    (4x4x4 torus, 8 faulty candidates at p_f 0.02, seed 0) for the guest
+    ``lammps``, and the preset's placement RNG for it."""
+    from repro.cluster.failures import BernoulliPerJob
+
+    candidates = np.random.default_rng(0).choice(64, 8, replace=False)
+    p_f = BernoulliPerJob(candidates, 0.02).outage_vector(64)
+    wl = lammps(27)
+    return wl, p_f, np.random.default_rng(0)
+
+
+@pytest.mark.parametrize("case", ["lammps-48-healthy",
+                                  "lammps-27-paper-fast-batch0"])
+def test_fractional_weight_guest_quality(case):
+    """Guests with non-dyadic weights (``lammps_like`` all-reduce bytes
+    over 27 or 48 ranks) may place differently under tofa on the torch
+    backend than on NumPy: the sparse refine sums gains in another order.
+    The reference's cross-backend contract holds such placements to 1.05x
+    the NumPy engine's hop-bytes (tests/test_backend_diff.py)."""
+    from repro.workloads.patterns import lammps_like as ref_lammps
+    from repro_torch.workloads.patterns import lammps_like
+
+    if case == "lammps-48-healthy":
+        ref_wl, p_f, rng = ref_lammps(48), None, np.random.default_rng(0)
+        wl, port_rng = lammps_like(48), np.random.default_rng(0)
+    else:
+        ref_wl, p_f, rng = _paper_fast_batch0(ref_lammps)
+        wl, _, port_rng = _paper_fast_batch0(lammps_like)
+    want = RefEngine().place(RefRequest(comm=ref_wl.comm,
+                                        topology=RefTorus((4, 4, 4)),
+                                        p_f=p_f), policy="tofa", rng=rng)
+    got = _engine().place(interop.request(wl.comm.G_v, wl.comm.G_m,
+                                          torus_dims=(4, 4, 4), p_f=p_f),
+                          policy="tofa", rng=port_rng)
+    assert len(set(got.placement.tolist())) == wl.n_ranks
+    assert got.faulty_nodes_used == want.faulty_nodes_used
+    assert got.hop_bytes <= want.hop_bytes * 1.05
+
+
+def test_default_engine_keyed_by_resolved_device():
+    """Every spelling of one device returns the one shared engine."""
+    from repro_torch.core.engine import default_engine
+
+    eng = default_engine("cpu")
+    assert default_engine(torch.device("cpu")) is eng
+    assert default_engine("cpu") is eng
+    assert eng.backend.device.type == "cpu"

@@ -57,6 +57,10 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.sim.scenarios, repro_torch.sim.batchsim\n"
         "import repro_torch.cluster.scheduler, repro_torch.beliefs\n"
         "import repro_torch.core.tofa, repro_torch.core.dragonfly\n"
+        "import repro_torch.service, repro_torch.service.service\n"
+        "import repro_torch.service.requests, repro_torch.service.queue\n"
+        "import repro_torch.service.metrics, repro_torch.sim.replicas\n"
+        "import repro_torch.core.placement, repro_torch.core.profiler\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n")

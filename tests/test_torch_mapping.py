@@ -1,13 +1,16 @@
 """Mapping parity: the torch backend against the reference's NumPy kernels.
 
 The port's ``mapping_torch`` is held to ``repro.core.mapping`` on its
-default numpy backend — never to the reference's jax backend, whose
-float64 path is unavailable on the installed jax.  At float64 the guest
+default numpy backend — never to the reference's jax float64 backend,
+which is unavailable on the installed jax.  At float64 the guest
 weights and distances are exact integers, so refined placements must be
 **bit-identical** and hop-bytes agree to rtol 1e-9 (the contract of
 ``tests/test_backend_diff.py``).  At float32 summation order may differ,
-so only valid integer placements within rtol 1e-3 of NumPy's hop-bytes
-are required.  Everything runs on the CPU with the plain PyTorch kernels.
+so against NumPy only valid integer placements within rtol 1e-3 of its
+hop-bytes are required; against the reference's jax float32 backend (run
+in a subprocess) placements must be equal, the one recorded exception
+held to 1.05x its hop-bytes.  Everything runs on the CPU with the plain
+PyTorch kernels.
 """
 import numpy as np
 import pytest
@@ -288,3 +291,136 @@ def test_entry_point_stats_count_calls():
     assert stats["select_nodes"]["calls"] == 0
     mapping_torch.reset_stats()
     assert stats["refine_many"] == {"calls": 0, "s": 0.0}
+
+
+# The float32 contract: the port's float32 kernels against the reference's
+# jax float32 backend.  ``backend.use("jax", dtype="float32")`` rebinds a
+# module global of the reference package, so the reference side runs in a
+# subprocess and hands back its placements as JSON.
+F32_CASES_PROGRAM = """\
+import json
+import numpy as np
+from repro.core import backend, mapping
+from repro.core.fattree import FatTreeTopology
+from repro.core.topology import TorusTopology
+from repro.workloads.patterns import alltoall_heavy, lammps_like, npb_dt_like
+
+def p_f(n):
+    out = np.zeros(n)
+    out[np.random.default_rng(5).choice(n, 6, replace=False)] = 0.1
+    return out
+
+out = {}
+with backend.use("jax", dtype="float32"):
+    for name, topo in (("torus", TorusTopology((4, 4, 4))),
+                       ("fattree", FatTreeTopology(8))):
+        G = npb_dt_like(40).comm.G_v
+        for faulty in (False, True):
+            D = topo.weight_matrix(p_f(topo.n_nodes)) if faulty \\
+                else topo.hop_matrix()
+            rng = np.random.default_rng(1)
+            P = np.stack([rng.permutation(topo.n_nodes)[:40]
+                          for _ in range(3)])
+            out[f"refine/{name}/{faulty}"] = mapping.refine_batch(G, D, P)
+        W = topo.weight_matrix(p_f(topo.n_nodes))
+        for count in (5, 17, 33):
+            for seed in (None, 3):
+                out[f"select/{name}/{count}/{seed}"] = \\
+                    mapping.select_nodes(W, count, seed=seed)
+        for wl in ("npb_dt_like", "lammps_like"):
+            out[f"greedy/{name}/{wl}"] = mapping.greedy_placement(
+                globals()[wl](24).comm.G_v, np.arange(topo.n_nodes),
+                topo.hop_matrix())
+    topo = TorusTopology((4, 4, 4))
+    rng = np.random.default_rng(2)
+    P = np.stack([rng.permutation(64)[:40] for _ in range(4)])
+    out["refine/dense-alltoall/True"] = mapping.refine_batch(
+        alltoall_heavy(40).comm.G_v, topo.weight_matrix(p_f(64)), P)
+print(json.dumps({k: np.asarray(v).tolist() for k, v in out.items()}))
+"""
+
+
+def _reference_subprocess(program: str) -> dict:
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", program], capture_output=True,
+                         text=True, env=env, timeout=600, check=True)
+    return json.loads(out.stdout)
+
+
+@pytest.fixture(scope="module")
+def jax_f32_placements():
+    return _reference_subprocess(F32_CASES_PROGRAM)
+
+
+def _port_f32_case(key: str) -> np.ndarray:
+    kind, name = key.split("/")[:2]
+    topo = interop.topology(torus_dims=(4, 4, 4)) \
+        if name in ("torus", "dense-alltoall") \
+        else interop.topology(fattree_k=8)
+    with _use_torch("float32"):
+        if kind == "refine":
+            faulty = key.endswith("True")
+            D = _weights(topo, faulty)
+            if name == "dense-alltoall":
+                rng = np.random.default_rng(2)
+                P = np.stack([rng.permutation(64)[:40] for _ in range(4)])
+                return mapping.refine_batch(alltoall_heavy(40).comm.G_v, D,
+                                            P)
+            rng = np.random.default_rng(1)
+            P = np.stack([rng.permutation(topo.n_nodes)[:40]
+                          for _ in range(3)])
+            return mapping.refine_batch(npb_dt_like(40).comm.G_v, D, P)
+        if kind == "select":
+            count, seed = key.split("/")[2:]
+            return mapping.select_nodes(
+                _weights(topo, True), int(count),
+                seed=None if seed == "None" else int(seed))
+        wl = {"npb_dt_like": npb_dt_like, "lammps_like": lammps_like}[
+            key.split("/")[2]]
+        return mapping.greedy_placement(wl(24).comm.G_v,
+                                        np.arange(topo.n_nodes),
+                                        topo.hop_matrix())
+
+
+F32_KEYS = ([f"refine/{h}/{f}" for h in ("torus", "fattree")
+             for f in (False, True)] + ["refine/dense-alltoall/True"]
+            + [f"select/{h}/{c}/{s}" for h in ("torus", "fattree")
+               for c in (5, 17, 33) for s in (None, 3)]
+            + [f"greedy/{h}/{w}" for h in ("torus", "fattree")
+               for w in ("npb_dt_like", "lammps_like")])
+
+
+# The one request whose float32 placements differ from the reference's
+# jax float32 ones (ROADMAP section 3): the all-to-all guest has many swaps
+# of equal gain, and float32 rounding of the 1e9-scale fault weights picks
+# others among them.  Each row's hop-bytes (scored at float64) equal the
+# reference's; the contract holds it to the cross-backend bound of
+# tests/test_backend_diff.py, 1.05x.
+F32_DIFFERS = {"refine/dense-alltoall/True"}
+
+
+@pytest.mark.parametrize("key", F32_KEYS)
+def test_float32_equals_reference_jax(jax_f32_placements, key):
+    """At float32 the port's placements equal the reference's jax float32
+    backend's on these requests, except ``F32_DIFFERS``: valid placements
+    within 1.05x of the reference's hop-bytes."""
+    got = _port_f32_case(key)
+    want = np.asarray(jax_f32_placements[key])
+    assert got.dtype.kind == "i"
+    if key not in F32_DIFFERS:
+        assert np.array_equal(got, want), key
+        return
+    assert not np.array_equal(got, want)      # still differs: update docs
+    G = alltoall_heavy(40).comm.G_v
+    D = _weights(interop.topology(torus_dims=(4, 4, 4)), True)
+    for row in got:
+        assert len(set(row.tolist())) == 40
+    assert (ref_mapping.hop_bytes_batch(G, D, got)
+            <= 1.05 * ref_mapping.hop_bytes_batch(G, D, want)).all()
