@@ -43,6 +43,17 @@ toolkit.  The script
    (``EXPECTED_MAMBA2``); all 64 layers on a 2 x 2048-token forward, held
    to its plain-version forward; 8 decode steps from empty caches held to
    that forward; and the serve driver;
+7a. runs zamba2-7b (hybrid: groups of mamba2 layers, each followed by one
+   shared attention block) and minicpm3-4b (MLA attention) at full width,
+   after holding ``flash_attention`` at their head dims (112; 96 with V
+   padded) and ``ssd_scan`` at zamba2's d_state 64: each cut in depth on
+   NumPy-seeded weights and held to the reference package's logits
+   (``EXPECTED_ZAMBA2``, 7 layers, B 2 x 256; ``EXPECTED_MINICPM3``, 2
+   layers, B 1 x 2048 through the flash branch), then at full depth on a
+   2 x 2048-token forward held to its plain-version forward (zamba2: 81
+   ``ssd_scan`` and 13 ``flash_attention`` launches; minicpm3: 62
+   ``flash_attention``), 8 decode steps held to that forward, and the
+   serve driver;
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -68,12 +79,13 @@ toolkit.  The script
    the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
    guest must launch ``swap_select``.
 
-Steps 5 to 7 run between steps 2 and 3; ``ssd_scan`` is checked with the
-other model kernels in step 5.  Each phase prints one JSON
-line.  Then come the kernel summary line, the card's name and power
-limit, and, only when every phase passed, the final
+Steps 5 to 7a run between steps 2 and 3; ``ssd_scan`` and the new shapes
+of step 7a are checked with the other model kernels in step 5.  Each phase
+prints one JSON line.  Then come the kernel summary line, the card's name
+and power limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
-compiler's resource report and the profiler tables go to ``chiprun_out/``.
+compiler's resource report, the profiler tables and every phase's line
+(``chip_smoke.jsonl``) go to ``chiprun_out/``.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -187,24 +199,28 @@ EXPECTED_FORWARD = [
 
 
 def forward_summary(held) -> list:
-    """[argmax id, float64 sum, top-2 gap] of each row's logits at each of
-    ``HELD_POSITIONS``; ``held`` is ``logits[:, HELD_POSITIONS]``, a
-    (B, len(HELD_POSITIONS), V) NumPy array."""
+    """[argmax id, float64 sum, top-2 gap, L2 norm] of each row's logits
+    at each held position; ``held`` is ``logits[:, positions]``, a (B,
+    len(positions), V) NumPy array."""
     import numpy as np
     out = []
     for row in held:
         for v in np.asarray(row, dtype=np.float64):
             top2 = np.sort(v)[-2:]
             out.append([int(np.argmax(v)), float(v.sum()),
-                        float(top2[1] - top2[0])])
+                        float(top2[1] - top2[0]), float(np.linalg.norm(v))])
     return out
 
 
 def forward_agrees(summary, expected=EXPECTED_FORWARD) -> bool:
     """Sums within rtol 1e-4 of the expected ones, and argmax ids equal
-    wherever the expected top-2 gap exceeds 1e-3."""
+    wherever the expected top-2 gap exceeds 1e-3.  Where the expected row
+    also gives the logits' L2 norm, a sum is held within 1e-4 of the
+    larger of its own size and that norm: V logits each off by ~1e-4 of
+    their size in no common direction move their sum by ~1e-4 of the
+    norm, which a sum that cancels to near zero does not bound."""
     return len(summary) == len(expected) and all(
-        abs(s[1] - e[1]) <= 1e-4 * abs(e[1])
+        abs(s[1] - e[1]) <= 1e-4 * max([abs(e[1]), *e[3:]])
         and (s[0] == e[0] or e[2] <= 1e-3)
         for s, e in zip(summary, expected))
 
@@ -225,6 +241,41 @@ EXPECTED_MAMBA2 = [
     [12249, 175.2925356309861, 0.2604396343231201],
     [21853, 405.7033743020147, 0.2919578552246094],
     [11623, 198.10172006301582, 0.5906195640563965],
+]
+
+
+# The cut-depth zamba2-7b forward (7 layers: one group of 6 mamba2 layers,
+# the shared block, one trailing layer; full width; B 2 x 256 tokens) is
+# held to the reference package at these positions.
+ZAMBA2_HELD_POSITIONS = (0, 127, 255)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(zamba2-7b with n_layers=7, seed=0) and
+# SyntheticDataset(32000, 256, 2, seed=0).batch(0): row 0 at
+# ZAMBA2_HELD_POSITIONS, then row 1, each with its logits' L2 norm, which
+# bounds the sum's tolerance (forward_agrees).  Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_hybrid.py -k expected_zamba2
+EXPECTED_ZAMBA2 = [
+    [10780, 63.786664771148935, 0.026947021484375, 214.57965636851694],
+    [25518, -231.49328653048724, 0.04395341873168945, 212.99258329548098],
+    [25688, -33.41605650819838, 0.45428466796875, 216.1453059521404],
+    [20901, -5.104152203537524, 0.03411245346069336, 215.58148619136907],
+    [4521, -17.829670194536448, 0.1756601333618164, 215.359289043662],
+    [12285, 254.16348306136206, 0.19585514068603516, 214.30284549485557],
+]
+# The cut-depth minicpm3-4b forward (2 layers, full width, B 1 x 2048
+# tokens: the flash branch with V padded 64 -> 96) is held at these.
+MINICPM3_HELD_POSITIONS = (0, 1023, 2047)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(minicpm3-4b with n_layers=2, seed=0) and
+# SyntheticDataset(73448, 2048, 1, seed=0).batch(0) at
+# MINICPM3_HELD_POSITIONS.  Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_mla.py -k expected_minicpm3
+EXPECTED_MINICPM3 = [
+    [14733, -319.2522032801062, 0.11726045608520508, 275.1309757798686],
+    [19628, -198.0785928685218, 0.31125354766845703, 274.01266138207285],
+    [2722, 399.5780456913635, 0.3611917495727539, 273.16618967684485],
 ]
 
 
@@ -253,8 +304,17 @@ KERNELS = {
 }
 
 
+# every emitted line is also kept here in full, for runs whose standard
+# output is kept only in part
+LOG = OUT_DIR / "chip_smoke.jsonl"
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    if LOG.parent.is_dir():
+        with LOG.open("a") as f:
+            f.write(line + "\n")
 
 
 def ptxas_report(logs: dict) -> list:
@@ -554,7 +614,11 @@ def profiled(run, key: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA]
+    # "Command Buffer Full" is CUPTI's record of the host waiting on a
+    # full launch queue, not work on the card: kept apart from busy time
+    stalls = [e for e in ka if e.key == "Command Buffer Full"]
+    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
+                  and e.key != "Command Buffer Full"]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e6
     OUT_DIR.mkdir(exist_ok=True)
     fname = OUT_DIR / ("profile_" + key.replace("/", "_") + ".txt")
@@ -563,7 +627,9 @@ def profiled(run, key: str) -> dict:
         + "\n" + ka.table(sort_by="self_cpu_time_total", row_limit=25))
     return {"profiled_wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall,
-            "device_ops": sum(e.count for e in dev_events)}
+            "device_ops": sum(e.count for e in dev_events),
+            "command_buffer_full_s": sum(e.self_device_time_total
+                                         for e in stalls) / 1e6}
 
 
 # launches of each kernel on the path that needs it (the placement phases,
@@ -1125,6 +1191,11 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh) of smollm-135m's 2048-token
 # forward, which the model phase hands the flash kernel
 FLASH_MAIN = (2, 9, 3, 2048, 2048, 64)
+# the shared block of zamba2-7b (32 heads of 112) and the MLA prefill of
+# minicpm3-4b (40 heads, q/k of 64 + 32, V padded from 64 to 96) at B 2 x
+# 2048, which their full-depth forwards hand the flash kernel
+FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 112)
+FLASH_MINICPM3 = (2, 40, 40, 2048, 2048, 96)
 RMSNORM_MAIN = (2 * 2048, 576)           # (rows, D): smollm's activations
 SWAP_GAIN_N = 1024
 
@@ -1255,6 +1326,9 @@ SSD_SHAPES = [(1, 2, 1, 64, 16, 16, 16), (2, 4, 2, 128, 32, 32, 32),
               (1, 8, 1, 96, 64, 128, 32), (2, 8, 1, 64, 16, 16, 8)]
 SSD_MAIN = (2, 80, 1, 2048, 64, 128, 64)
 SSD_MAIN_128 = SSD_MAIN[:6] + (128,)
+# zamba2-7b's mamba2 layers at B 2 x 2048: 112 heads of 64, d_state 64
+# (the kernel's generic instance, padded to P = N = 128)
+SSD_ZAMBA2 = (2, 112, 1, 2048, 64, 64, 64)
 
 
 def ssd_ops(B, H, G, S, P, N) -> float:
@@ -1331,34 +1405,48 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
 
 
 def model_kernel_phase(dev) -> dict:
-    """The model-stack kernels against their plain versions; the records
-    at the main path's shape and dtype go into the summary line."""
+    """The model-stack kernels against their plain versions.  Returns the
+    float32 records (the model phases run float32) by kernel and shape;
+    the one at the largest shape the main path gave a kernel goes into
+    the summary line."""
     import torch
-    recs = {}
-    for dt in ("float32", "bfloat16"):
-        rec = check_flash(dev, dt, FLASH_MAIN, "kernels/model")
-        if dt == "float32":          # the model phase runs float32
-            recs["flash_attention"] = rec
-        torch.cuda.empty_cache()
+    recs = {name: {} for name in ("flash_attention", "rmsnorm",
+                                  "swap_gain", "ssd_scan")}
+    for shape in (FLASH_MAIN, FLASH_ZAMBA2, FLASH_MINICPM3):
+        for dt in ("float32", "bfloat16"):
+            rec = check_flash(dev, dt, shape, "kernels/model")
+            if dt == "float32":
+                recs["flash_attention"][shape] = rec
+            torch.cuda.empty_cache()
     check_flash(dev, "bfloat16", (1, 16, 16, 1024, 1024, 192),
                 "kernels/model")
     for dt in ("float32", "bfloat16"):
         rec = check_rmsnorm(dev, dt, *RMSNORM_MAIN, "kernels/model")
         if dt == "float32":
-            recs["rmsnorm"] = rec
+            recs["rmsnorm"][RMSNORM_MAIN] = rec
     for dt in ("float64", "float32"):
         rec = check_swap_gain(dev, dt, SWAP_GAIN_N, "kernels/model")
         if dt == "float64":          # the refiner's default dtype
-            recs["swap_gain"] = rec
+            recs["swap_gain"][(SWAP_GAIN_N,)] = rec
     for dt in ("float32", "bfloat16"):
         for shape in SSD_SHAPES:
             check_ssd(dev, dt, shape, "kernels/model", timed=False)
-        rec = check_ssd(dev, dt, SSD_MAIN, "kernels/model", timed=True)
-        if dt == "float32":          # the mamba2 phases run float32
-            recs["ssd_scan"] = rec
-        check_ssd(dev, dt, SSD_MAIN_128, "kernels/model", timed=True)
+        for shape in (SSD_MAIN, SSD_MAIN_128, SSD_ZAMBA2):
+            rec = check_ssd(dev, dt, shape, "kernels/model", timed=True)
+            if dt == "float32":
+                recs["ssd_scan"][shape] = rec
         torch.cuda.empty_cache()
     return recs
+
+
+def main_shape_record(recs: dict, name: str) -> dict:
+    """The record of ``name`` at the largest shape the main path gave it,
+    or, where that shape was not checked, at the first shape that was."""
+    by_shape = recs.get(name, {})
+    shape = MAIN_PATH_SHAPES[name]
+    if shape is not None and tuple(shape) in by_shape:
+        return by_shape[tuple(shape)]
+    return next(iter(by_shape.values()), {})
 
 
 def _count_path(names) -> dict:
@@ -1400,15 +1488,17 @@ def entry_point_phase(dev) -> None:
         raise AssertionError("an entry point did not launch its kernel")
 
 
-def run_forward(model, toks, kernel: str, key: str):
+def run_forward(model, toks, launches: dict, key: str):
     """The forward of ``model`` on ``toks`` cold, warm, once more under
     the profiler, and through the plain versions (``impl="ref"``), held
-    within 1e-4 of each other; ``kernel``'s launch counts are zeroed just
-    before the cold forward and read just after it.  Returns (logits,
-    record)."""
+    within 1e-4 of each other.  ``launches`` maps each kernel the forward
+    must go through to its launches per forward; the counts are zeroed
+    just before the cold forward and read just after it.  Returns
+    (logits, record)."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
 
+    names = tuple(launches)
     with torch.inference_mode():
         reset_launches()
         torch.cuda.synchronize()
@@ -1417,14 +1507,14 @@ def run_forward(model, toks, kernel: str, key: str):
         logits = model(toks)
         torch.cuda.synchronize()
         cold = time.perf_counter() - t0
-        launches = _count_path((kernel,))[kernel]
+        got = _count_path(names)
         peak = torch.cuda.max_memory_allocated()
         t0 = time.perf_counter()
         model(toks)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
         prof = profiled(lambda: model(toks), key)
-        total = LAUNCHES[kernel]
+        total = {name: LAUNCHES[name] for name in names}
         plain = model(toks, impl="ref")
         torch.cuda.synchronize()
     err = float((logits - plain).abs().max())
@@ -1435,14 +1525,15 @@ def run_forward(model, toks, kernel: str, key: str):
     rec = {"phase": key, "dtype": str(logits.dtype).replace("torch.", ""),
            "batch": B, "seq": S, "layers": n, "cold_s": cold,
            "warm_s": warm, "prefill_tok_per_s": B * S / warm,
-           "peak_mem_mb": peak / 2**20, "kernel": kernel,
-           "launches_per_forward": launches,
+           "peak_mem_mb": peak / 2**20,
+           "launches_per_forward": got,
            "launches_in_three_forwards": total,
            "max_abs_err_vs_plain": err, "plain_ok": plain_ok, **prof,
            "finite": bool(torch.isfinite(logits).all()),
            "shape_ok": tuple(logits.shape) == (B, S, model.cfg.vocab)}
-    rec["ok"] = (launches == n and total == 3 * n and plain_ok
-                 and rec["finite"] and rec["shape_ok"])
+    rec["ok"] = (got == launches
+                 and total == {k: 3 * v for k, v in launches.items()}
+                 and plain_ok and rec["finite"] and rec["shape_ok"])
     return logits, rec
 
 
@@ -1476,7 +1567,8 @@ def model_phase(dev):
     toks = toks.to(dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    logits, rec = run_forward(model, toks, "flash_attention",
+    logits, rec = run_forward(model, toks,
+                              {"flash_attention": cfg.n_layers},
                               "model/smollm-135m/forward-2048")
     rec.update(load_s=load_s, **held_to_reference(logits, HELD_POSITIONS,
                                                   EXPECTED_FORWARD))
@@ -1487,11 +1579,32 @@ def model_phase(dev):
     return model, toks, logits[:, :8].clone()
 
 
-def mamba2_cut_phase(dev) -> None:
-    """mamba2-2.7b at full width with its depth cut to two layers,
-    float32, NumPy-seeded weights: a B 2 x 256 forward through the
-    ``ssd_scan`` kernel (one launch per layer), held to the reference's
-    logits (``EXPECTED_MAMBA2``)."""
+def per_forward_launches(cfg, S: int) -> dict:
+    """The kernel launches one forward of ``cfg`` on S tokens makes: one
+    ``ssd_scan`` per mamba2 layer, one ``flash_attention`` per attention
+    application when S reaches the flash branch (``FLASH_MIN_SEQ``)."""
+    from repro_torch.models.layers import FLASH_MIN_SEQ
+    from repro_torch.models.model import _hybrid_split
+
+    if cfg.family == "ssm":
+        return {"ssd_scan": cfg.n_layers}
+    out = {}
+    attn = cfg.n_layers
+    if cfg.family == "hybrid":
+        G, k, trail = _hybrid_split(cfg)
+        out["ssd_scan"] = G * k + trail
+        attn = G
+    if S >= FLASH_MIN_SEQ:
+        out["flash_attention"] = attn
+    return out
+
+
+def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
+                    positions, expected) -> None:
+    """``arch`` at full width with its depth cut to ``layers``, float32,
+    NumPy-seeded weights (``interop.seeded_params(seed=0)``): a B x S
+    forward on ``SyntheticDataset(seed=0)`` tokens through the kernels,
+    held to the reference's logits ``expected`` at ``positions``."""
     import dataclasses
     import torch
     from repro_torch import interop
@@ -1499,38 +1612,39 @@ def mamba2_cut_phase(dev) -> None:
     from repro_torch.kernels import reset_launches
     from repro_torch.train.data import SyntheticDataset
 
-    cfg = dataclasses.replace(get_arch("mamba2-2.7b"), n_layers=2)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     t0 = time.perf_counter()
     model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
                                  device=dev)
-    toks = SyntheticDataset(cfg.vocab, 256, 2, seed=0).batch(0)["tokens"]
+    toks = SyntheticDataset(cfg.vocab, S, B, seed=0).batch(0)["tokens"]
     toks = toks.to(dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    want = per_forward_launches(cfg, S)
     with torch.inference_mode():
         reset_launches()
         t0 = time.perf_counter()
         logits = model(toks)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _count_path(("ssd_scan",))["ssd_scan"]
-    rec = held_to_reference(logits, MAMBA2_HELD_POSITIONS, EXPECTED_MAMBA2)
-    B, S = toks.shape
-    ok = (launches == cfg.n_layers and rec["reference_ok"]
-          and bool(torch.isfinite(logits).all())
+        launches = _count_path(("ssd_scan", "flash_attention"))
+    rec = held_to_reference(logits, positions, expected)
+    ok = (launches == {k: want.get(k, 0) for k in launches}
+          and rec["reference_ok"] and bool(torch.isfinite(logits).all())
           and tuple(logits.shape) == (B, S, cfg.vocab))
-    emit({"phase": "model/mamba2-2.7b/forward-256-L2", "dtype": "float32",
-          "batch": B, "seq": S, "layers": cfg.n_layers, "load_s": load_s,
-          "cold_s": wall, "ssd_scan_launches": launches, **rec, "ok": ok})
+    emit({"phase": f"model/{arch}/forward-{S}-L{layers}",
+          "dtype": "float32", "batch": B, "seq": S, "layers": layers,
+          "load_s": load_s, "cold_s": wall, "launches": launches, **rec,
+          "ok": ok})
     if not ok:
-        raise AssertionError("the cut-depth mamba2-2.7b forward failed its "
-                             "checks")
+        raise AssertionError(f"the cut-depth {arch} forward failed its "
+                             f"checks")
 
 
-def mamba2_phase(dev):
-    """mamba2-2.7b at full width and depth (64 layers), float32, weights
-    drawn on the card from seed 0: the B 2 x 2048 forward through the
-    ``ssd_scan`` kernel, held to the plain version's forward.  Returns
+def full_depth_phase(dev, arch: str):
+    """``arch`` at full width and depth, float32, weights drawn on the
+    card from seed 0: the B 2 x 2048 forward through the kernels
+    (``run_forward``), held to the plain versions' forward.  Returns
     (model, tokens, logits of the first 8 positions) for the decode
     phase."""
     import torch
@@ -1538,20 +1652,34 @@ def mamba2_phase(dev):
     from repro_torch.models import model as M
     from repro_torch.train.data import SyntheticDataset
 
-    cfg = get_arch("mamba2-2.7b")
+    cfg = get_arch(arch)
     t0 = time.perf_counter()
     model = M.init(cfg, seed=0, device=dev)
     toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
     toks = toks.to(dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    logits, rec = run_forward(model, toks, "ssd_scan",
-                              "model/mamba2-2.7b/forward-2048")
+    logits, rec = run_forward(model, toks, per_forward_launches(cfg, 2048),
+                              f"model/{arch}/forward-2048")
     rec["load_s"] = load_s
     emit(rec)
     if not rec["ok"]:
-        raise AssertionError("the mamba2-2.7b forward failed its checks")
+        raise AssertionError(f"the {arch} forward failed its checks")
     return model, toks, logits[:, :8].clone()
+
+
+def model_family_phase(dev, arch: str, cut: tuple) -> None:
+    """The cut-depth forward (``cut``: layers, B, S, held positions,
+    expected summary), then the full-depth forward, 8 decode steps held
+    to it and the serve driver; each model is freed before the next."""
+    import torch
+    cut_depth_phase(dev, arch, *cut)
+    torch.cuda.empty_cache()
+    model, toks, fwd_logits = full_depth_phase(dev, arch)
+    decode_phase(model, toks, fwd_logits)
+    del model, toks, fwd_logits
+    torch.cuda.empty_cache()
+    serve_phase(arch)
 
 
 def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
@@ -1643,6 +1771,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     OUT_DIR.mkdir(exist_ok=True)
+    LOG.write_text("")
     (OUT_DIR / "ptxas.txt").write_text("".join(
         f"== {name}\n{log}\n" for name, log in _build.BUILD_LOGS.items()))
     emit({"phase": "build", "s": time.perf_counter() - t0,
@@ -1679,18 +1808,21 @@ def main() -> int:
         traceback.print_exc()
         failed.append("model")
     torch.cuda.empty_cache()
-    try:
-        mamba2_cut_phase(dev)
+    for arch, cut in (
+            ("mamba2-2.7b", (2, 2, 256, MAMBA2_HELD_POSITIONS,
+                             EXPECTED_MAMBA2)),
+            ("zamba2-7b", (7, 2, 256, ZAMBA2_HELD_POSITIONS,
+                           EXPECTED_ZAMBA2)),
+            ("minicpm3-4b", (2, 1, 2048, MINICPM3_HELD_POSITIONS,
+                             EXPECTED_MINICPM3))):
+        t0 = time.perf_counter()
+        try:
+            model_family_phase(dev, arch, cut)
+        except Exception:                   # reported, and the run fails
+            traceback.print_exc()
+            failed.append(arch)
         torch.cuda.empty_cache()
-        model, toks, fwd_logits = mamba2_phase(dev)
-        decode_phase(model, toks, fwd_logits)
-        del model, toks, fwd_logits
-        torch.cuda.empty_cache()
-        serve_phase("mamba2-2.7b")
-    except Exception:                       # reported, and the run fails
-        traceback.print_exc()
-        failed.append("mamba2")
-    torch.cuda.empty_cache()
+        emit({"phase": f"model/{arch}/done", "s": time.perf_counter() - t0})
     for run in placement_phases():
         try:
             run()
@@ -1720,11 +1852,10 @@ def main() -> int:
         traceback.print_exc()
         failed.append("kernels/main-shape")
 
-    records.update(model_recs)
     emit({"phase": "total", "s": time.perf_counter() - t_start})
     summary = []
     for name, meta in KERNELS.items():
-        rec = records.get(name, {})
+        rec = records.get(name) or main_shape_record(model_recs, name)
         summary.append({"name": name, "route": "cuda", **meta,
                         "launches": MAIN_PATH_LAUNCHES[name],
                         "shape": MAIN_PATH_SHAPES[name],

@@ -82,13 +82,14 @@ def request(G_v: np.ndarray, G_m: Optional[np.ndarray] = None, *,
 
 def model_params(cfg, params_np: dict, *, device="cuda",
                  dtype: torch.dtype = torch.float32) -> Transformer:
-    """A :class:`~repro_torch.models.model.Transformer` (dense GQA or SSM)
-    holding the reference's parameters.
+    """A :class:`~repro_torch.models.model.Transformer` (any family the
+    port runs) holding the reference's parameters.
 
     ``params_np`` is the reference's nested parameter dict as NumPy
     arrays, for example ``jax.tree.map(np.asarray, repro.models.model.
-    init(cfg, key))``, with the blocks' leaves stacked over a leading
-    layer axis; layer ``l`` of the module gets slice ``[l]`` of each.
+    init(cfg, key))``, with each group's leaves stacked over a leading
+    layer axis; layer ``l`` of ``blocks`` (or ``trailing``) gets slice
+    ``[l]`` of each, a hybrid model's ``shared`` block slice ``[0]``.
     Every leaf of the schema must be there at its shape, and nothing
     else.  The tensors are made on ``device`` in ``dtype``."""
     model = Transformer(cfg, device=device, dtype=dtype)
@@ -116,12 +117,13 @@ def model_params(cfg, params_np: dict, *, device="cuda",
 
 
 def seeded_params(cfg, seed: int = 0) -> dict:
-    """Parameters of a model the port runs (dense GQA or SSM) drawn with
-    NumPy, in the reference's layout (nested dict, blocks stacked over
-    layers), float32.
+    """Parameters of a model the port runs drawn with NumPy, in the
+    reference's layout (nested dict, each group stacked over its layers),
+    float32.
 
-    Each schema leaf in the schema's order (the blocks' leaves in their
-    own order after the top-level ones) is ones, zeros, or
+    Each schema leaf in the schema's order (each group's leaves in their
+    own order, where the group stands among the top-level keys) is ones,
+    zeros, or
     ``default_rng(seed)`` standard normals times its scale.  Both packages
     can run the same weights from it: the reference takes the dict as it
     is, the port through :func:`model_params`."""

@@ -51,6 +51,7 @@
 //     32   64        registers (8)   16        25 KB
 //     64   64        registers (16)  32        45 KB
 //     96   64        registers (24)  48        65 KB
+//     112  64        registers (28)  56        75 KB
 //     128  64        registers (32)  64        85 KB
 //     192  32        shared memory   96        75 KB
 //     256  32        shared memory  128        99 KB
@@ -66,10 +67,10 @@
 // staged in shared memory as float32 with rows of Dh + 1 floats, the
 // probabilities through shared memory; its roof is the card's float32 rate.
 // Shared memory: (64 (Dh+1) + 64 (Dh+1) + 64 Dh + 64 * 65) floats, 66 KB at
-// Dh 64 and 209 KB at Dh 256.
+// Dh 64, 101 KB at Dh 112 and 209 KB at Dh 256.
 //
-// Both are built for Dh 16 (the reduced test configs), 32, 64, 96, 128, 192
-// and 256.  Dynamic shared memory above 48 KB is set with
+// Both are built for Dh 16 (the reduced test configs), 32, 64, 96, 112
+// (zamba2), 128, 192 and 256.  Dynamic shared memory above 48 KB is set with
 // cudaFuncSetAttribute.  Each entry point issues one launch.  The C entry
 // points return the CUDA error code of the launch so the Python wrapper
 // raises on a refused launch; the kernel allocates nothing.  The bfloat16
@@ -580,6 +581,7 @@ int dispatch(bool is_bf16, const void* q, const void* k, const void* v,
     case 32: return launch<32>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
     case 64: return launch<64>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
     case 96: return launch<96>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
+    case 112: return launch<112>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
     case 128: return launch<128>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
     case 192: return launch<192>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
     case 256: return launch<256>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);

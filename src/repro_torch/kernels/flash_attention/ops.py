@@ -16,7 +16,7 @@ from .ref import flash_attention_ref
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # the head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 192, 256)
 
 
 def _lib() -> ctypes.CDLL:

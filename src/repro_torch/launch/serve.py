@@ -3,7 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
-``--arch`` takes the dense GQA models and mamba2-2.7b.  The driver
+``--arch`` takes the dense GQA models, minicpm3-4b (MLA), mamba2-2.7b
+and zamba2-7b (hybrid); MoE, VLM and encoder-decoder archs raise
+``NotImplementedError``.  The driver
 prefills token by token through the decode step, as the reference's
 driver does, then decodes greedily, under ``torch.inference_mode()``.
 The weights are random, drawn from ``--seed`` on the target device.

@@ -1,10 +1,12 @@
-"""Core NN building blocks of the dense model: norms, RoPE, GQA attention
-and the MLP, in PyTorch.
+"""Core NN building blocks of the dense model: norms, RoPE, attention (GQA
+and MLA) and the MLP, in PyTorch.
 
 The functions take a block's parameters as attributes of ``p`` (a
 :class:`~repro_torch.models.model.DenseBlock`), in the reference's
 orientation: ``wq (d, h, hd)``, ``wk``/``wv (d, kv, hd)``, ``wo (h, hd,
-d)``, ``w_up``/``w_gate (d, f)``, ``w_down (f, d)``.  ``ParamDef`` schemas
+d)``, ``w_up``/``w_gate (d, f)``, ``w_down (f, d)``; MLA's ``w_dkv (d,
+lora + rope)``, ``w_uk``/``w_uv (lora, h, hd)``, and ``w_dq (d, q_lora)``
+with ``w_uq (q_lora, h, qk)`` or ``wq (d, h, qk)``.  ``ParamDef`` schemas
 describe every parameter (shape, logical axes, init kind and scale) as in
 the reference, so a model built here and one built there line up name for
 name.
@@ -12,6 +14,7 @@ name.
 Conventions:
   activations  (B, S, D)  — batch, sequence, d_model
   GQA caches   (B, Hkv, S, Dh)
+  MLA caches   (B, S, kv_lora + rope_dim)   (compressed latent, per layer)
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 # sequences at or above this length use the flash (online-softmax) attention
@@ -166,6 +169,105 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
         scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bhtk->bhsk", probs, v)
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+
+
+# --------------------------------------------------------------------------
+# attention (MLA — multi-head latent attention, deepseek-v2 / minicpm3)
+# --------------------------------------------------------------------------
+
+def mla_schema(cfg: ModelConfig, layers: int) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    L = (layers,)
+    qdim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    sch = {
+        # KV compression: d -> latent (+ decoupled rope key)
+        "w_dkv": ParamDef(L + (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                          ("layers", "embed", None)),
+        # latent -> per-head K(nope) and V
+        "w_uk": ParamDef(L + (m.kv_lora_rank, h, m.qk_nope_head_dim),
+                         ("layers", None, "heads", None)),
+        "w_uv": ParamDef(L + (m.kv_lora_rank, h, m.v_head_dim),
+                         ("layers", None, "heads", None)),
+        "wo": ParamDef(L + (h, m.v_head_dim, d),
+                       ("layers", "heads", None, "embed"), scale=out_scale),
+    }
+    if m.q_lora_rank:
+        sch["w_dq"] = ParamDef(L + (d, m.q_lora_rank),
+                               ("layers", "embed", "lora"))
+        sch["w_uq"] = ParamDef(L + (m.q_lora_rank, h, qdim),
+                               ("layers", "lora", "heads", None))
+    else:
+        sch["wq"] = ParamDef(L + (d, h, qdim),
+                             ("layers", "embed", "heads", None))
+    return sch
+
+
+def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
+                  cache: Optional[torch.Tensor] = None, cache_pos: int = 0,
+                  causal: bool = True, impl: str = "auto"):
+    """Multi-head latent attention; returns (out, new_cache).
+
+    Scores are formed in the latent space (the *absorbed* form: ``q_nope
+    W_uk`` against the latent, plus the rope parts), so decode reads only
+    the compressed cache.  With ``cache`` — ``ckv`` (B, S_max, lora +
+    rope) — this step's latent and rope key are written into it *in
+    place* at ``cache_pos`` and the same tensor comes back as the new
+    cache.  Without a cache, a causal sequence of ``FLASH_MIN_SEQ`` or
+    more tokens takes the expanded form instead: per-head K from ``w_uk``
+    and the broadcast rope key, V from ``w_uv`` padded to K's head dim,
+    :func:`~repro_torch.kernels.flash_attention.ops.flash_attention`
+    (``impl`` picks its kernel or plain version), and the output trimmed
+    back to ``v_head_dim``.  ``cos``/``sin`` are the rope table of
+    ``qk_rope_head_dim``."""
+    B, S, D = x.shape
+    nope, lora = mla.qk_nope_head_dim, mla.kv_lora_rank
+    if getattr(p, "w_dq", None) is not None:
+        q = torch.einsum("bsr,rhk->bhsk", x @ p.w_dq, p.w_uq)
+    else:
+        q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+    ckv = x @ p.w_dkv                                   # (B, S, lora+rope)
+    ckv = torch.cat([ckv[..., :lora], apply_rope(ckv[..., lora:], cos, sin)],
+                    dim=-1)
+    new_cache = None
+    if cache is not None:
+        cache[:, cache_pos:cache_pos + S] = ckv.to(cache.dtype)
+        ckv = new_cache = cache
+    c_lat, k_rope = ckv[..., :lora], ckv[..., lora:]
+
+    if cache is None and causal and S >= FLASH_MIN_SEQ:
+        # prefill: expand per-head K/V (naive MLA form) + flash attention
+        k_nope = torch.einsum("btr,rhk->bhtk", c_lat, p.w_uk)
+        v = torch.einsum("btr,rhk->bhtk", c_lat, p.w_uv)
+        kr = k_rope[:, None].expand(-1, k_nope.shape[1], -1, -1)
+        k_full = torch.cat([k_nope, kr], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        # pad V to the K head dim for the shared kernel, trim after
+        pad = q_full.shape[-1] - v.shape[-1]
+        v_p = F.pad(v, (0, pad)) if pad else v
+        out = flash_attention(q_full, k_full, v_p, causal=True, impl=impl)
+        out = out[..., :mla.v_head_dim]
+        return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
+
+    # absorbed: q' = q_nope @ W_uk -> latent space
+    q_lat = torch.einsum("bhsk,rhk->bhsr", q_nope, p.w_uk)
+    scores = torch.einsum("bhsr,btr->bhst", q_lat, c_lat) \
+        + torch.einsum("bhsk,btk->bhst", q_rope, k_rope)
+    scores = scores.float() * (1.0 / math.sqrt(nope + mla.qk_rope_head_dim))
+    t = torch.arange(ckv.shape[1], device=x.device)
+    if cache is not None:
+        qpos = cache_pos + torch.arange(S, device=x.device)
+        scores = torch.where(t[None, :] <= qpos[:, None], scores, -1e30)
+    elif causal:
+        scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    # out = probs @ (c_lat @ W_uv): absorb into latent, then lift per head
+    ctx = torch.einsum("bhst,btr->bhsr", probs, c_lat)
+    out = torch.einsum("bhsr,rhk->bhsk", ctx, p.w_uv)
     return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
 
 

@@ -12,10 +12,13 @@ orientation, so loading one into the other is a slice per layer
 (:func:`repro_torch.interop.model_params`).  :func:`param_leaves` names
 that correspondence.
 
-The port runs the dense family with GQA attention (smollm-135m,
-starcoder2-7b, nemotron-4-340b) and the SSM family (mamba2-2.7b); the
-other families and MLA raise ``NotImplementedError``.  The port is
-single-device: the reference's sharding context is not carried over.
+The port runs the dense family with GQA or MLA attention (smollm-135m,
+starcoder2-7b, nemotron-4-340b, minicpm3-4b), the SSM family
+(mamba2-2.7b) and the hybrid family (zamba2-7b: groups of mamba2 layers,
+each followed by one shared attention block, then trailing mamba2
+layers); MoE, VLM and encoder-decoder models raise
+``NotImplementedError``.  The port is single-device: the reference's
+sharding context is not carried over.
 """
 from __future__ import annotations
 
@@ -27,34 +30,29 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models.layers import (ParamDef, gqa_attention, gqa_schema,
-                                       init_, mlp, mlp_schema, rmsnorm,
-                                       rope_freqs)
+                                       init_, mla_attention, mla_schema, mlp,
+                                       mlp_schema, rmsnorm, rope_freqs)
 from repro_torch.models.ssm import mamba2_block, mamba2_schema
 
 # what is still to be ported, by ROADMAP.md queue 1 item
 _NOT_PORTED = {
     "moe": "MoE (phi3.5-moe, deepseek-v2-lite)",
-    "hybrid": "the other model families (zamba2, llama-3.2-vision, "
-              "seamless-m4t)",
-    "vlm": "the other model families (zamba2, llama-3.2-vision, "
-           "seamless-m4t)",
-    "encdec": "the other model families (zamba2, llama-3.2-vision, "
-              "seamless-m4t)",
-    "mla": "MLA attention (minicpm3, deepseek-v2-lite)",
+    "vlm": "the other model families (llama-3.2-vision, seamless-m4t)",
+    "encdec": "the other model families (llama-3.2-vision, seamless-m4t)",
 }
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         what = _NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; "
             f"ROADMAP.md queue 1 lists it under {what}")
-    if cfg.family == "dense" and cfg.attn_type != "gqa":
+    if cfg.family != "ssm" and cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_type!r} is not ported yet; "
-            f"ROADMAP.md queue 1 lists it under {_NOT_PORTED['mla']}")
+            f"ROADMAP.md queue 1 does not list it")
 
 
 # --------------------------------------------------------------------------
@@ -67,9 +65,19 @@ def _norms_schema(cfg: ModelConfig, layers: int, n: int = 2) -> dict:
             for i in range(n)}
 
 
+def _attn_schema(cfg: ModelConfig, layers: int) -> dict:
+    if cfg.attn_type == "mla":
+        return mla_schema(cfg, layers)
+    return gqa_schema(cfg, layers)
+
+
 def schema(cfg: ModelConfig) -> dict:
-    """The reference's parameter schema of a dense GQA or an SSM model,
-    with the blocks' leaves stacked over a leading layer axis."""
+    """The reference's parameter schema of a model the port runs, with
+    each group's leaves stacked over a leading layer axis: ``blocks`` (a
+    dense or SSM model's layers; a hybrid model's G·k mamba2 layers), and
+    for a hybrid model ``trailing`` (its last n_layers − G·k mamba2
+    layers) and ``shared`` (its one attention + MLP block, stacked over
+    1)."""
     check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab
     sch: dict = {
@@ -82,8 +90,18 @@ def schema(cfg: ModelConfig) -> dict:
     if cfg.family == "ssm":
         sch["blocks"] = {**mamba2_schema(cfg, L),
                          **_norms_schema(cfg, L, n=1)}
+    elif cfg.family == "hybrid":
+        G, k, trail = _hybrid_split(cfg)
+        sch["blocks"] = {**mamba2_schema(cfg, G * k),
+                         **_norms_schema(cfg, G * k, n=1)}
+        if trail:
+            sch["trailing"] = {**mamba2_schema(cfg, trail),
+                               **_norms_schema(cfg, trail, n=1)}
+        # ONE shared attention block (true weight sharing, zamba2-style)
+        sch["shared"] = {**_attn_schema(cfg, 1), **mlp_schema(cfg, 1),
+                         **_norms_schema(cfg, 1)}
     else:
-        sch["blocks"] = {**gqa_schema(cfg, L), **mlp_schema(cfg, L),
+        sch["blocks"] = {**_attn_schema(cfg, L), **mlp_schema(cfg, L),
                          **_norms_schema(cfg, L)}
     return sch
 
@@ -92,14 +110,19 @@ def param_leaves(cfg: ModelConfig
                  ) -> Iterator[tuple[str, tuple, Optional[int], ParamDef]]:
     """Each parameter of a :class:`Transformer` as ``(module name, schema
     path, layer or None, ParamDef)``: ``("blocks.3.wq", ("blocks", "wq"),
-    3, def)`` is slice 3 of the reference's stacked ``blocks/wq``."""
+    3, def)`` is slice 3 of the reference's stacked ``blocks/wq``, and a
+    hybrid model's ``("shared.wq", ("shared", "wq"), 0, def)`` the one
+    slice of ``shared/wq``."""
     for key, d in schema(cfg).items():
-        if key == "blocks":
-            for name, dd in d.items():
-                for layer in range(cfg.n_layers):
-                    yield f"blocks.{layer}.{name}", (key, name), layer, dd
-        else:
+        if not isinstance(d, dict):
             yield key, (key,), None, d
+            continue
+        for name, dd in d.items():
+            if key == "shared":
+                yield f"shared.{name}", (key, name), 0, dd
+                continue
+            for layer in range(dd.shape[0]):
+                yield f"{key}.{layer}.{name}", (key, name), layer, dd
 
 
 # --------------------------------------------------------------------------
@@ -111,11 +134,13 @@ def _empty(shape, device, dtype) -> nn.Parameter:
 
 
 class DenseBlock(nn.Module):
-    """One pre-norm layer: GQA attention and the MLP, each with a residual.
+    """One pre-norm layer: GQA or MLA attention (by ``cfg.attn_type``) and
+    the MLP, each with a residual.
 
     Its parameters carry the reference's names and orientation (``wq``,
-    ``wk``, ``wv``, ``wo``, ``w_up``, ``w_gate`` or None, ``w_down``,
-    ``ln1``, ``ln2``)."""
+    ``wk``, ``wv``, ``wo`` or MLA's ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``
+    and ``w_dq``, ``w_uq`` or ``wq``; ``w_up``, ``w_gate`` or None,
+    ``w_down``, ``ln1``, ``ln2``)."""
 
     def __init__(self, shapes: dict, *, device, dtype):
         super().__init__()
@@ -126,9 +151,13 @@ class DenseBlock(nn.Module):
 
     def forward(self, h, cfg: ModelConfig, cos, sin, *, cache=None,
                 pos: int = 0, impl: str = "auto"):
-        a, kc = gqa_attention(self, rmsnorm(h, self.ln1), cos, sin,
-                              n_heads=cfg.n_heads, cache=cache,
-                              cache_pos=pos, impl=impl)
+        x = rmsnorm(h, self.ln1)
+        if cfg.attn_type == "mla":
+            a, kc = mla_attention(self, x, cos, sin, mla=cfg.mla,
+                                  cache=cache, cache_pos=pos, impl=impl)
+        else:
+            a, kc = gqa_attention(self, x, cos, sin, n_heads=cfg.n_heads,
+                                  cache=cache, cache_pos=pos, impl=impl)
         h = h + a
         h = h + mlp(self, rmsnorm(h, self.ln2), cfg.act)
         return h, kc
@@ -156,9 +185,13 @@ class MambaBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The decoder: token embedding, ``n_layers`` dense or mamba2 blocks
-    (by the config's family), the final norm and the tied or untied
-    unembedding.
+    """The decoder: token embedding, the blocks of the config's family,
+    the final norm and the tied or untied unembedding.
+
+    ``blocks`` holds ``n_layers`` dense or mamba2 blocks; a hybrid model
+    holds its G·k mamba2 layers there, its trailing mamba2 layers in
+    ``trailing`` and **one** :class:`DenseBlock`, ``shared``, which it
+    applies after every group of k mamba2 layers (one set of weights).
 
     The parameters are made on ``device`` (``cuda`` unless the caller asks
     for ``cpu``; without a GPU a CUDA device raises
@@ -178,11 +211,21 @@ class Transformer(nn.Module):
         self.register_parameter(
             "unembed", None if cfg.tie_embeddings
             else _empty(sch["unembed"].shape, dev, dtype))
-        per_layer = {k: d.shape[1:] for k, d in sch["blocks"].items()}
-        block = MambaBlock if cfg.family == "ssm" else DenseBlock
-        self.blocks = nn.ModuleList(
-            block(per_layer, device=dev, dtype=dtype)
-            for _ in range(cfg.n_layers))
+
+        def stack(group: str, block) -> nn.ModuleList:
+            leaves = sch.get(group, {})
+            per_layer = {k: d.shape[1:] for k, d in leaves.items()}
+            n = next(iter(leaves.values())).shape[0] if leaves else 0
+            return nn.ModuleList(block(per_layer, device=dev, dtype=dtype)
+                                 for _ in range(n))
+
+        mamba = cfg.family in ("ssm", "hybrid")
+        self.blocks = stack("blocks", MambaBlock if mamba else DenseBlock)
+        if cfg.family == "hybrid":
+            self.trailing = stack("trailing", MambaBlock)
+            self.shared = DenseBlock(
+                {k: d.shape[1:] for k, d in sch["shared"].items()},
+                device=dev, dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -200,26 +243,40 @@ class Transformer(nn.Module):
                 impl: str = "auto") -> torch.Tensor:
         """Token logits (B, S, vocab) for train/prefill from tokens (B, S).
 
-        ``impl`` is handed to the kernel entry point of the family: the
-        flash attention, which causal sequences of ``FLASH_MIN_SEQ``
-        tokens or more run through, or every mamba2 layer's ``ssd_scan``.
-        Both CUDA kernels are forward-only: call this under
+        ``impl`` is handed to the kernel entry points: the flash
+        attention, which causal sequences of ``FLASH_MIN_SEQ`` tokens or
+        more run through, and every mamba2 layer's ``ssd_scan``.  Both
+        CUDA kernels are forward-only: call this under
         ``torch.inference_mode()`` on a GPU."""
         B, S = tokens.shape
+        cfg = self.cfg
         h = self.embed(tokens)
-        if self.cfg.family == "ssm":
+        if cfg.family == "ssm":
             for blk in self.blocks:
-                h, _ = blk(h, self.cfg, impl=impl)
+                h, _ = blk(h, cfg, impl=impl)
             return self.logits(h)
-        cos, sin = _rope(self.cfg, S, device=self.device)
+        cos, sin = _rope(cfg, S, device=self.device)
+        if cfg.family == "hybrid":
+            G, k, _ = _hybrid_split(cfg)
+            for g in range(G):
+                for blk in self.blocks[g * k:(g + 1) * k]:
+                    h, _ = blk(h, cfg, impl=impl)
+                h, _ = self.shared(h, cfg, cos, sin, impl=impl)
+            for blk in self.trailing:
+                h, _ = blk(h, cfg, impl=impl)
+            return self.logits(h)
         for blk in self.blocks:
-            h, _ = blk(h, self.cfg, cos, sin, impl=impl)
+            h, _ = blk(h, cfg, cos, sin, impl=impl)
         return self.logits(h)
 
 
 def _rope(cfg: ModelConfig, S: int, offset: int = 0, *, device):
+    """cos/sin of positions offset .. offset + S - 1; MLA rotates only its
+    ``qk_rope_head_dim`` part."""
     pos = torch.arange(offset, offset + S, device=device)
-    return rope_freqs(cfg.head_dim_, cfg.rope_theta, pos)
+    hd = cfg.mla.qk_rope_head_dim if cfg.attn_type == "mla" \
+        else cfg.head_dim_
+    return rope_freqs(hd, cfg.rope_theta, pos)
 
 
 def init(cfg: ModelConfig, *, seed: int = 0,

@@ -1,31 +1,39 @@
-"""Single-token decode step of the dense GQA and the SSM models.
+"""Single-token decode step of every model family the port runs.
 
 ``decode_step(model, caches, tokens, pos)`` consumes a (B, 1) token batch
 and the cache dict and returns (logits (B, 1, V), caches).  The reference
 scans the layers with the caches as scan inputs and outputs; here each
 layer writes its new cache entries *in place* into its slice of the
-stacked caches (keys and values at ``pos``; a mamba2 layer's conv tail and
-state), so the returned caches are the same tensors that came in.
+stacked caches (keys and values, or MLA's compressed latent, at ``pos``;
+a mamba2 layer's conv tail and state), so the returned caches are the
+same tensors that came in.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import Transformer, _rope
+from repro_torch.models.model import Transformer, _hybrid_split, _rope
 
 
-def _dense_decode_scan(model: Transformer, caches: dict, h, cos, sin,
-                       pos: int):
-    for layer, blk in enumerate(model.blocks):
-        cache = (caches["k"][layer], caches["v"][layer])
-        h, _ = blk(h, model.cfg, cos, sin, cache=cache, pos=pos)
-    return h
+def _attn_cache(c: dict, layer: int):
+    """Layer ``layer``'s slice of an attention cache group: MLA's ``ckv``
+    (B, S_max, lora + rope), or the GQA ``(k, v)`` pair."""
+    if "ckv" in c:
+        return c["ckv"][layer]
+    return c["k"][layer], c["v"][layer]
 
 
-def _mamba_decode_scan(model: Transformer, caches: dict, h):
-    for layer, blk in enumerate(model.blocks):
-        conv, state = caches["conv"][layer], caches["state"][layer]
-        h, (new_conv, new_state) = blk(h, model.cfg, conv_state=conv,
+def _max_cache_len(caches: dict, cfg) -> int:
+    """The sequence length of the attention cache the family keeps."""
+    c = caches["shared"] if cfg.family == "hybrid" else caches["blocks"]
+    return c["ckv"].shape[2] if "ckv" in c else c["k"].shape[3]
+
+
+def _mamba_layers(blocks, cfg, caches: dict, h, first: int = 0):
+    """Run ``blocks``, block i with cache slot ``first + i``."""
+    for i, blk in enumerate(blocks):
+        conv, state = caches["conv"][first + i], caches["state"][first + i]
+        h, (new_conv, new_state) = blk(h, cfg, conv_state=conv,
                                        ssm_state=state)
         # new_conv is a slice of a window built with cat, not a view of
         # the cache slot it overwrites
@@ -40,19 +48,33 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
     """One token for the whole batch at write position ``pos`` (an int;
     an SSM model's step does not depend on it).
 
-    The caches are updated in place and returned."""
+    A hybrid model runs group g's k mamba2 layers, then the shared block
+    with KV cache slot g, for each group, then its trailing layers.  The
+    caches are updated in place and returned."""
     cfg = model.cfg
     B, S1 = tokens.shape
     h = model.embed(tokens)
     if cfg.family == "ssm":
-        h = _mamba_decode_scan(model, caches["blocks"], h)
+        h = _mamba_layers(model.blocks, cfg, caches["blocks"], h)
         return model.logits(h), caches
-    max_seq = caches["blocks"]["k"].shape[3]
+    max_seq = _max_cache_len(caches, cfg)
     if not 0 <= pos <= max_seq - S1:
         raise ValueError(f"write position {pos} (+{S1}) outside the cache "
                          f"of length {max_seq}")
     # the rope rows of positions pos .. pos + S1 - 1 (the reference slices
     # them out of the table for the whole cache length; same values)
     cos, sin = _rope(cfg, S1, offset=pos, device=model.device)
-    h = _dense_decode_scan(model, caches["blocks"], h, cos, sin, pos)
+    if cfg.family == "hybrid":
+        G, k, _ = _hybrid_split(cfg)
+        for g in range(G):
+            h = _mamba_layers(model.blocks[g * k:(g + 1) * k], cfg,
+                              caches["blocks"], h, first=g * k)
+            h, _ = model.shared(h, cfg, cos, sin, pos=pos,
+                                cache=_attn_cache(caches["shared"], g))
+        if len(model.trailing):
+            h = _mamba_layers(model.trailing, cfg, caches["trailing"], h)
+        return model.logits(h), caches
+    for layer, blk in enumerate(model.blocks):
+        h, _ = blk(h, cfg, cos, sin, pos=pos,
+                   cache=_attn_cache(caches["blocks"], layer))
     return model.logits(h), caches

@@ -13,7 +13,7 @@ shards from) are equal:
 
 :func:`cache_schema` covers every family (shape arithmetic only);
 :func:`init_cache` allocates the caches the port can decode with: the
-dense GQA family and the SSM family.
+dense family (GQA or MLA), the SSM family and the hybrid family.
 """
 from __future__ import annotations
 
@@ -95,12 +95,16 @@ def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype: torch.dtype = torch.float32, device="cuda") -> dict:
-    """Zeroed decode caches made on ``device``: for a dense GQA model
-    ``{"blocks": {"k", "v"}}``, each (L, B, Hkv, max_seq, Dh), in
-    ``dtype``; for an SSM model ``{"blocks": {"conv", "state"}}``, the conv
-    tail (L, B, d_conv - 1, C) in ``dtype`` and the state (L, B, H, P, N)
-    always in float32 (``max_seq`` does not enter: the caches are O(1) in
-    sequence length)."""
+    """Zeroed decode caches made on ``device``, in ``dtype`` except where
+    the schema pins one: for a dense GQA model ``{"blocks": {"k", "v"}}``,
+    each (L, B, Hkv, max_seq, Dh); for a dense MLA model ``{"blocks":
+    {"ckv"}}``, (L, B, max_seq, lora + rope); for an SSM model
+    ``{"blocks": {"conv", "state"}}``, the conv tail (L, B, d_conv - 1, C)
+    and the state (L, B, H, P, N) always in float32 (``max_seq`` does not
+    enter: the caches are O(1) in sequence length); for a hybrid model the
+    mamba2 caches of its G·k grouped layers (``blocks``) and of its
+    trailing layers (``trailing``), and ``shared``: the shared block's
+    k/v, one slot per application, (G, B, Hkv, max_seq, Dh)."""
     check_ported(cfg)
     dev = resolve_device(device)
     sch = cache_schema(cfg, batch, max_seq)

@@ -16,11 +16,15 @@ versions within the reference's kernel-test tolerances (2e-5 in float32,
 2e-2 in bfloat16), the SSD scan kernel within that test's 5e-5 / 5e-2 to
 the exact recurrence and to the chunked algorithm, and the models'
 forwards through the kernels to their forwards through the plain
-versions within 1e-4.  Two scenario presets, the placement service's
+versions within 1e-4 (zamba2-7b and minicpm3-4b at full width with their
+depth cut, through the flash kernel at head dims 112 and 96 and the SSD
+kernel at d_state 64).  Two scenario presets, the placement service's
 fast storm and four fat-tree replicas with their placements on the card
 must return what they return with their placements on the CPU, and every
 spelling of the card must give one shared default engine.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -199,6 +203,43 @@ def test_flash_kernel_matches_plain(cuda_device, B, H, Hkv, Sq, Sk, Dh,
                                rtol=TOL[dtype])
 
 
+# zamba2-7b's head dim 112 and minicpm3-4b's MLA prefill (q/k of 64 + 32,
+# V padded from 64 to 96), each at its model's B 2 x 2048
+NEW_HEAD_DIM_SHAPES = [
+    (1, 4, 4, 300, 300, 112, True),      # ragged tail
+    (1, 2, 1, 70, 300, 112, True),       # Sq < Sk, GQA
+    (1, 4, 4, 130, 130, 112, False),     # non-causal
+    (2, 32, 32, 2048, 2048, 112, True),  # zamba2-7b's shared block
+    (2, 40, 40, 2048, 2048, 96, True),   # minicpm3-4b's MLA prefill
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", NEW_HEAD_DIM_SHAPES)
+def test_flash_kernel_model_head_dims_match_plain(cuda_device, B, H, Hkv,
+                                                  Sq, Sk, Dh, causal, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device
+                           ).to(dtype)
+               for shape in ((B, H, Sq, Dh), (B, Hkv, Sk, Dh),
+                             (B, Hkv, Sk, Dh)))
+    reset_launches()
+    got = flash_attention(q, k, v, causal=causal, impl="kernel")
+    want = flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device):
+    """The reduced MLA config's q/k of 16 + 8 columns: no instance, no
+    fallback to the plain version."""
+    q = torch.randn(1, 2, 8, 24, device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q, impl="kernel")
+
+
 def test_flash_kernel_refuses_grad(cuda_device):
     q = torch.randn(1, 2, 8, 32, device=cuda_device, requires_grad=True)
     with pytest.raises(NotImplementedError):
@@ -352,6 +393,31 @@ def test_ssd_kernel_refuses_grad(cuda_device):
         ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=8, impl="kernel")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", [
+    (1, 4, 1, 128, 64, 64, 64),
+    (2, 112, 1, 2048, 64, 64, 64),    # zamba2-7b, B 2 x 2048
+])
+def test_ssd_kernel_zamba2_state_matches_plain(cuda_device, B, H, G, S, P,
+                                               N, chunk, dtype):
+    """d_state 64 runs the kernel's generic instance (padded to P = N =
+    128): against the exact recurrence, and the chunked algorithm in
+    float32."""
+    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    reset_launches()
+    y, st = ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk, impl="kernel")
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1
+    tol = SSD_TOL[dtype]
+    want = [ssd_scan_ref(xdt, dA, Bm, Cm, chunk)]
+    if dtype == torch.float32:
+        want.append(ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=chunk, impl="ref"))
+    for y_r, st_r in want:
+        torch.testing.assert_close(y.float(), y_r.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(st, st_r, atol=tol, rtol=tol)
+
+
 def test_ssd_kernel_refuses_chunk_not_dividing_seq(cuda_device):
     xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, 1, 2, 1, 24, 16, 16,
                                   torch.float32)
@@ -373,6 +439,35 @@ def test_mamba2_forward_kernel_matches_plain(cuda_device, S):
         want = model(toks, impl="ref")
     assert launched == cfg.n_layers
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,layers,launches", [
+    ("zamba2-7b", 7, {"ssd_scan": 7, "flash_attention": 1}),
+    ("minicpm3-4b", 2, {"ssd_scan": 0, "flash_attention": 2}),
+])
+def test_cut_depth_forward_kernels_match_plain(cuda_device, arch, layers,
+                                               launches):
+    """zamba2-7b (one group of 6 mamba2 layers, the shared block, one
+    trailing layer) and minicpm3-4b (two MLA layers) at full width, B 1 x
+    2048 (the flash branch), through the kernels against the same
+    forward through the plain versions."""
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    reset_launches()
+    with torch.inference_mode():
+        got = model(toks, impl="kernel")
+        launched = {k: LAUNCHES[k] for k in launches}
+        want = model(toks, impl="ref")
+    assert launched == launches
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b"])
+def test_hybrid_and_mla_serve_main_on_card(cuda_device, capsys, arch):
+    assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4"]) == 0
+    assert capsys.readouterr().out.count("\n") == 3
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
