@@ -25,7 +25,10 @@ toolkit.  The script
    ``swap_gain``) against their plain versions at the shapes smollm-135m
    gives them, within the reference's kernel-test tolerances (exactly, for
    ``swap_gain`` on integer-valued inputs), and times each beside the one
-   PyTorch call that computes the same function, where there is one;
+   PyTorch call that computes the same function, where there is one; the
+   float32 ``flash_attention`` (3xTF32 on the tensor cores) is also held,
+   beside its float32 plain version, to the plain version run in float64 at
+   the three model shapes, and may be at most twice as far from it;
    ``rmsnorm`` and ``swap_gain`` are then driven once through their entry
    points;
 6. runs smollm-135m at full width and depth (30 layers, float32,
@@ -84,8 +87,9 @@ of step 7a are checked with the other model kernels in step 5.  Each phase
 prints one JSON line.  Then come the kernel summary line, the card's name
 and power limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
-compiler's resource report, the profiler tables and every phase's line
-(``chip_smoke.jsonl``) go to ``chiprun_out/``.
+compiler's resource report (also printed, with each flash instance's
+shared memory and blocks an SM holds), the profiler tables and every
+phase's line (``chip_smoke.jsonl``) go to ``chiprun_out/``.
 
 The script imports nothing of JAX or of the reference package.
 """
@@ -106,10 +110,13 @@ OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, the non-tensor-core float32 / float64 rates, and the dense
-# bfloat16 tensor-core rate.  float32 work is bound by the non-tensor rate
-# because TF32 is off (main() turns it off for matmul and cuDNN).
+# bfloat16 and TF32 tensor-core rates.  float32 work is held to the
+# non-tensor rate (main() turns TF32 off for matmul and cuDNN), except the
+# flash kernel's, which computes float32-accurate products as three TF32
+# ones (3xTF32) and is held to 3 x its operations at the TF32 rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12,
+            "tf32": 495e12}
 
 # Reference hop-bytes.  The first two are committed in
 # benchmarks/BENCH_mapping.json (trajectory point "pr9-sharded-refine").
@@ -348,6 +355,17 @@ def ptxas_report(logs: dict) -> list:
             name = name.replace("(anonymous namespace)::", "")
             r["kernel"] = name.split("(")[0].removeprefix("void ")
     return rows
+
+
+def flash_resources() -> list:
+    """Dynamic shared memory, registers, local (spill) bytes a thread and
+    blocks an SM holds, of every flash_attention instance on this card."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         kernel_resources)
+    return [{"dtype": str(dt).removeprefix("torch."), "Dh": d,
+             **kernel_resources(dt, d)}
+            for dt in (torch.float32, torch.bfloat16) for d in HEAD_DIMS]
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3,
@@ -1208,9 +1226,18 @@ def _record(max_abs_err, ms, host, plain, plain_ahead, library, nbytes,
                 bound_ms=bnd, bound_by=by)
 
 
-def check_flash(dev, dt: str, shape: tuple, tag: str) -> dict:
+def check_flash(dev, dt: str, shape: tuple, tag: str,
+                f64: bool = False) -> dict:
     """flash_attention (causal) against its plain version at ``shape``,
-    timed beside F.scaled_dot_product_attention on the same inputs."""
+    timed beside F.scaled_dot_product_attention on the same inputs.
+
+    float32 records carry two bounds: ``bound_ms`` (= ``bound_tc_ms``), the
+    3xTF32 work at the TF32 tensor-core rate, which the kernel runs, and
+    ``bound_cuda_core_ms``, the same operations at the CUDA cores' float32
+    rate, so a time below the latter reads as expected.  With ``f64`` the
+    kernel and the float32 plain version are both held to the plain
+    version run in float64: the kernel's largest error may be at most
+    twice the float32 plain version's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1226,6 +1253,13 @@ def check_flash(dev, dt: str, shape: tuple, tag: str) -> dict:
     err = float((got.float() - want.float()).abs().max())
     ok = bool(torch.allclose(got.float(), want.float(), atol=TOL[dt],
                              rtol=TOL[dt]))
+    errs64 = {}
+    if f64:
+        exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                    causal=True)
+        errs64 = {"kernel": float((got.double() - exact).abs().max()),
+                  "plain": float((want.double() - exact).abs().max())}
+        del exact
     del got, want
     ms, host, _ = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                                   impl="kernel"))
@@ -1238,14 +1272,26 @@ def check_flash(dev, dt: str, shape: tuple, tag: str) -> dict:
     # dot product for the score and a Dh-long update of the output
     pairs = sum(max(0, min(Sk, i + 1 + Sk - Sq)) for i in range(Sq))
     nbytes = (2 * B * H * Sq * Dh + 2 * B * Hkv * Sk * Dh) * size
-    rec = _record(err, ms, host, plain, plain_ahead, library, nbytes,
-                  4.0 * Dh * pairs * B * H, dt)
+    ops = 4.0 * Dh * pairs * B * H
+    rec = _record(err, ms, host, plain, plain_ahead, library, nbytes, ops,
+                  dt)
+    if dt == "float32":
+        rec["bound_cuda_core_ms"] = rec["bound_ms"]
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3 * ops, "tf32")
+        rec["bound_tc_ms"] = rec["bound_ms"]
     rec["ms_over_library"] = ms / library
+    if errs64:
+        rec["max_abs_err_f64"] = errs64
     emit({"phase": tag, "kernel": "flash_attention", "dtype": dt,
           "shape": list(shape), "causal": True, "tol": TOL[dt], "ok": ok,
           **rec})
     if not ok:
         raise AssertionError(f"flash_attention disagrees at {shape} {dt}")
+    if errs64 and errs64["kernel"] > 2 * errs64["plain"]:
+        raise AssertionError(
+            f"flash_attention at {shape} {dt}: error {errs64['kernel']:.3g} "
+            f"from the float64 plain version, more than twice the float32 "
+            f"plain version's {errs64['plain']:.3g}")
     return rec
 
 
@@ -1414,7 +1460,8 @@ def model_kernel_phase(dev) -> dict:
                                   "swap_gain", "ssd_scan")}
     for shape in (FLASH_MAIN, FLASH_ZAMBA2, FLASH_MINICPM3):
         for dt in ("float32", "bfloat16"):
-            rec = check_flash(dev, dt, shape, "kernels/model")
+            rec = check_flash(dev, dt, shape, "kernels/model",
+                              f64=dt == "float32")
             if dt == "float32":
                 recs["flash_attention"][shape] = rec
             torch.cuda.empty_cache()
@@ -1778,6 +1825,8 @@ def main() -> int:
           "libraries": sorted(p.name for p in libs.values())})
     emit({"phase": "build/ptxas",
           "instances": ptxas_report(_build.BUILD_LOGS)})
+    emit({"phase": "build/flash_resources",
+          "instances": flash_resources()})
 
     failed = []
     try:
@@ -1864,6 +1913,8 @@ def main() -> int:
                         "plain_ms": rec.get("plain_ms"),
                         "bound_ms": rec.get("bound_ms"),
                         "bound_by": rec.get("bound_by"),
+                        **({"bound_cuda_core_ms": rec["bound_cuda_core_ms"]}
+                           if "bound_cuda_core_ms" in rec else {}),
                         "library_ms": rec.get("library_ms")})
     emit({"kernels": summary})
     smi = subprocess.run(

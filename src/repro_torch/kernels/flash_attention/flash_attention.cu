@@ -60,21 +60,81 @@
 //   Dh 256 leave room for the scores.  ptxas's report of each instance is
 //   printed by chip_smoke.py.
 //
-// float32: `flash_fwd_kernel`, unchanged since it was first written, on the
-// CUDA cores in full float32 (no TF32): one block of 256 threads (a 16 x 16
-// grid, 4 query rows and Dh / 16 output columns a thread) per (b, h, 64-row
-// query tile), the query tile and per step one key and one value tile
-// staged in shared memory as float32 with rows of Dh + 1 floats, the
-// probabilities through shared memory; its roof is the card's float32 rate.
-// Shared memory: (64 (Dh+1) + 64 (Dh+1) + 64 Dh + 64 * 65) floats, 66 KB at
-// Dh 64, 101 KB at Dh 112 and 209 KB at Dh 256.
+// float32: `flash_f32_kernel`, the same shape on the tensor cores in
+// 3xTF32, the split that CUTLASS calls "fast accurate float32".  Each
+// float32 operand x is split into big = tf32(x) and small = tf32(x - big),
+// both rounded to nearest (ties away, as `cvt.rna.tf32.f32` rounds; the
+// mma's own truncation of the low 13 bits would keep about 19 bits), and
+// each product a b is computed as small_a big_b + big_a small_b + big_a
+// big_b by three `mma.sync.m16n8k8` TF32 products with float32
+// accumulators.  That keeps about 22 bits of every operand: float32
+// accuracy, whatever `torch.backends.cuda.matmul.allow_tf32` says (the
+// kernel never reads it).
+//
+//   * one block of 8 warps owns one (b, h, 128-row query tile), 16 rows a
+//     warp (4 warps and 64 rows above Dh 128, where Q takes shared memory
+//     too); K and V stream through a two-stage ring of 16-byte
+//     `cp.async` copies (zero-filled past Sk) with rows padded to Dh + 4
+//     floats, so the scalar fragment loads of K (key g, column t4) and of V
+//     (keys 2 t4 and 2 t4 + 1, column g) fall on 32 distinct banks for
+//     every Dh (Dh + 4 is 4 or 20 mod 32);
+//   * each landed tile is split once by the whole block: big overwrites the
+//     raw value in the ring, small goes to a one-stage buffer beside it, so
+//     a warp reads its B fragments ready-made (four 32-bit loads for three
+//     products) instead of splitting every value once a warp; 8 warps
+//     sharing each split tile ran faster than 4 at the model shapes;
+//   * up to Dh 112, Q's A fragments are read straight from device memory
+//     and split once per block into registers; above it Q sits in shared
+//     memory and its fragments are split at every step;
+//   * the tensor cores' float32 sum drops low bits of a large accumulator,
+//     which over a 2048-key row costs several times plain float32's error.
+//     So the scores keep the two cross products in an accumulator of their
+//     own (the score's accumulator takes one product a step), and P V sums
+//     each 8-key step's three products in a fresh accumulator that a
+//     float32 add folds into the output;
+//   * P stays in registers: the m16n8 score fragment holds keys (2 t4,
+//     2 t4 + 1) where the m16n8k8 A fragment wants k-indices (t4, t4 + 4),
+//     so key 2 t4 is read as k-index t4 and key 2 t4 + 1 as t4 + 4, and V's
+//     B fragment is read in the same permuted key order (a product's k
+//     order is free).  P is split into big and small like every operand:
+//     it is float32 in the reference and stays float32-accurate here;
+//   * the softmax (with `ex2.approx.ftz`), the masking and the schedule are
+//     the bfloat16 instance's; the output is acc / max(l, 1e-30), a true
+//     division.
+//
+//   What bounds it: operations.  Three TF32 products for each float32 one
+//   at the card's dense TF32 rate of 495 TFLOP/s, i.e. 3 x 4 Dh per visible
+//   (query, key) pair at 495 TFLOP/s: 0.391 ms at minicpm3-4b's MLA
+//   prefill (B 2, H 40, S 2048, Dh 96, causal), 0.365 ms at zamba2-7b's
+//   (2, 32, 32, 2048, 2048, 112), 0.0586 ms at smollm-135m's.  The same
+//   work on the CUDA cores in float32 (67 TFLOP/s) would take 0.962, 0.898
+//   and 0.144 ms.  `mma.sync` does not reach the 495 TFLOP/s that `wgmma`
+//   does; TF32 `wgmma` wants both operands K-major, so V would need a
+//   transposed copy (`ldmatrix.trans` moves 16-bit elements only).
+//
+//   Per head dim (ptxas's registers and spill-store bytes a thread, and the
+//   blocks an SM holds, on an H100 with CUDA 12.8):
+//     Dh   warps  key tile  Q fragments    shared memory  registers  blocks
+//     16   8      64        registers       30 KB         128 / 4    2
+//     32   8      64        registers       54 KB         174 / 0    1
+//     64   8      64        registers      102 KB         255 / 68   1
+//     96   8      64        registers      150 KB         255 / 176  1
+//     112  8      32        registers       87 KB         255 / 116  1
+//     128  8      32        shared memory  165 KB         177 / 0    1
+//     192  4      32        shared memory  196 KB         255 / 144  1
+//     256  4      16        shared memory  163 KB         255 / 696  1
+//   With 8 warps at up to 255 registers a thread, one block fills an SM's
+//   register file, so the key tile is sized by shared memory and by what
+//   ran faster (64 keys at Dh 96, 32 at Dh 112).  chip_smoke.py prints
+//   ptxas's report of every instance and each one's dynamic shared memory
+//   and blocks an SM holds (`flash_attention_resources`).
 //
 // Both are built for Dh 16 (the reduced test configs), 32, 64, 96, 112
 // (zamba2), 128, 192 and 256.  Dynamic shared memory above 48 KB is set with
 // cudaFuncSetAttribute.  Each entry point issues one launch.  The C entry
 // points return the CUDA error code of the launch so the Python wrapper
-// raises on a refused launch; the kernel allocates nothing.  The bfloat16
-// instance reads q, k, v in 16-byte pieces: their base addresses must be
+// raises on a refused launch; the kernel allocates nothing.  Both
+// instances read q, k, v in 16-byte pieces: their base addresses must be
 // 16-byte aligned (the wrapper sees to it).
 
 #include <cuda_bf16.h>
@@ -82,179 +142,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per shared-memory tile (float32)
-constexpr int kThreads = 256;  // a 16 x 16 thread grid (float32)
+constexpr int kBQ = 64;        // query rows per block (4 warps x 16)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-template <int D>
-struct Smem {
-  static constexpr int kQ = kBQ * (D + 1);
-  static constexpr int kK = kBK * (D + 1);
-  static constexpr int kV = kBK * D;
-  static constexpr int kP = kBQ * (kBK + 1);
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kK + kV + kP);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int H,
-                     int Hkv, int Sq, int Sk, int causal, float scale) {
-  static_assert(D % 16 == 0, "Dh must be a multiple of 16");
-  constexpr int kC = kBK / 16;  // score columns per thread
-  constexpr int kO = D / 16;    // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + Smem<D>::kQ;
-  float* Vs = Ks + Smem<D>::kK;
-  float* Ps = Vs + Smem<D>::kV;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int offset = Sk - Sq;
-
-  const T* qb = q + static_cast<int64_t>(b * H + h) * Sq * D;
-  const T* kb = k + static_cast<int64_t>(b * Hkv + hk) * Sk * D;
-  const T* vb = v + static_cast<int64_t>(b * Hkv + hk) * Sk * D;
-  T* ob = o + static_cast<int64_t>(b * H + h) * Sq * D;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    Qs[r * (D + 1) + c] =
-        q0 + r < Sq ? to_f32(qb[static_cast<int64_t>(q0 + r) * D + c]) : 0.f;
-  }
-
-  float m[4], l[4], acc[4][kO];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kO; ++c) acc[i][c] = 0.f;
-  }
-
-  // key tiles this query tile sees: all of them, or (causal) up to the one
-  // holding the last visible key of its last real row
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) {
-    const int last_k = min(q0 + kBQ, Sq) - 1 + offset;
-    n_tiles = last_k < 0 ? 0 : min(n_tiles, last_k / kBK + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const bool in = k0 + r < Sk;
-      const int64_t g = static_cast<int64_t>(k0 + r) * D + c;
-      Ks[r * (D + 1) + c] = in ? to_f32(kb[g]) : 0.f;
-      Vs[r * D + c] = in ? to_f32(vb[g]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][kC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[kC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < kC; ++j) bk[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kC; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i + offset;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (kpos >= Sk || (causal && kpos > qpos)) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(ty * 4 + i) * (kBK + 1) + tx + 16 * j] = p;
-        rs += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kO; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();  // P of this tile is complete
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4], vv[kO];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * (kBK + 1) + kk];
-#pragma unroll
-      for (int c = 0; c < kO; ++c) vv[c] = Vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < kO; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < kO; ++c)
-      store(ob + static_cast<int64_t>(row) * D + tx + 16 * c,
-            acc[i][c] / denom);
-  }
-}
-
-
-// ------------------------------------------------ bfloat16, tensor cores
-using bf16 = __nv_bfloat16;
-
-template <int D>
-struct Tc {
-  static constexpr int kThreads = 128;             // 4 warps x 16 rows
-  static constexpr int kBK = D <= 128 ? 64 : 32;   // keys per tile
-  static constexpr int kLd = D + 8;                // padded row, elements
-  static constexpr bool kQInRegs = D <= 128;
-  static constexpr size_t kBytes =
-      sizeof(bf16) * static_cast<size_t>(kLd) * (kBQ + 4 * kBK);
-};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -275,6 +168,35 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// rows [row0, row0 + ROWS) of a (rows, D) matrix into shared memory with
+// rows of LD elements, in 16-byte pieces; rows at or past `total` are zero
+template <int D, int ROWS, int LD, int NT = 128, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int total, int tid) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a piece
+  constexpr int kPieces = D / kPer;                       // pieces a row
+  for (int e = tid; e < ROWS * kPieces; e += NT) {
+    const int r = e / kPieces, c = e % kPieces;
+    const bool in = row0 + r < total;
+    const T* g =
+        src + static_cast<int64_t>(in ? row0 + r : 0) * D + c * kPer;
+    cp_async16(smem_addr(dst + r * LD + c * kPer), g, in);
+  }
+}
+
+// ------------------------------------------------ bfloat16, tensor cores
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Tc {
+  static constexpr int kThreads = 128;             // 4 warps x 16 rows
+  static constexpr int kBK = D <= 128 ? 64 : 32;   // keys per tile
+  static constexpr int kLd = D + 8;                // padded row, elements
+  static constexpr bool kQInRegs = D <= 128;
+  static constexpr size_t kBytes =
+      sizeof(bf16) * static_cast<size_t>(kLd) * (kBQ + 4 * kBK);
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
                                         uint32_t& r1, uint32_t& r2,
@@ -307,20 +229,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of a (rows, D) bfloat16 matrix into shared
-// memory with rows of LD elements; rows at or past `total` are zero
-template <int D, int ROWS, int LD>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int total, int tid) {
-  constexpr int kPieces = D / 8;  // 16-byte pieces a row
-  for (int e = tid; e < ROWS * kPieces; e += 128) {
-    const int r = e / kPieces, c = e % kPieces;
-    const bool in = row0 + r < total;
-    const bf16* g = src + static_cast<int64_t>(in ? row0 + r : 0) * D + c * 8;
-    cp_async16(smem_addr(dst + r * LD + c * 8), g, in);
-  }
 }
 
 template <int D>
@@ -519,21 +427,322 @@ __global__ void __launch_bounds__(128)
   }
 }
 
+// ------------------------------------------------ float32, 3xTF32 tensor cores
+template <int D>
+struct F32 {
+  static constexpr int kWarps = D <= 128 ? 8 : 4;  // 16 query rows a warp
+  static constexpr int kRows = 16 * kWarps;        // query rows a block
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBK = D <= 96 ? 64 : D <= 192 ? 32 : 16;  // keys a tile
+  static constexpr int kLd = D + 4;               // padded row, floats
+  static constexpr bool kQInRegs = D <= 112;      // split Q held in registers
+  // K and V: two stages of tiles (split in place to their big halves) and
+  // one of small halves; Q's rows above Dh 112
+  static constexpr size_t kBytes =
+      sizeof(float) * static_cast<size_t>(kLd) *
+      ((kQInRegs ? 0 : kRows) + 6 * kBK);
+};
+
+// x rounded to TF32 (10 explicit mantissa bits), to nearest, ties away
+// from zero: the rounding of `cvt.rna.tf32.f32`, identical for every finite
+// x, in an integer add and a mask (ptxas expands the conversion into a
+// compare, the add, the mask and a select)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + what neither keeps (about 2^-22 of x), both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// 2^x; results below 2^-126 flush to zero, which a probability may
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// c += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 out
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the two cross terms first, then big x big
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           uint32_t bb0, uint32_t bb1,
+                                           uint32_t bs0, uint32_t bs1) {
+  mma_tf32(c, as, bb0, bb1);
+  mma_tf32(c, ab, bs0, bs1);
+  mma_tf32(c, ab, bb0, bb1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32<D>::kThreads)
+    flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int H, int Hkv, int Sq, int Sk, int causal,
+                     float scale_log2) {
+  using C = F32<D>;
+  constexpr int BK = C::kBK, LD = C::kLd, BQ = C::kRows, NT = C::kThreads;
+  constexpr int KD = D / 8;    // 8-wide steps over the head dim
+  constexpr int NS = BK / 8;   // 8-key score tiles, and 8-key steps of P V
+  constexpr int NO = D / 8;    // 8-wide output tiles
+  constexpr int KQ = C::kQInRegs ? KD : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // two stages of BK rows
+  float* Vs = Ks + 2 * BK * LD;                    // two stages of BK rows
+  float* Kss = Vs + 2 * BK * LD;                   // small halves, one stage
+  float* Vss = Kss + BK * LD;
+  float* Qs = Vss + BK * LD;                       // BQ rows, above Dh 112
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row and column
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest tiles first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (H / Hkv);
+  const int offset = Sk - Sq;
+
+  const float* qb = q + static_cast<int64_t>(b * H + h) * Sq * D;
+  const float* kb = k + static_cast<int64_t>(b * Hkv + hk) * Sk * D;
+  const float* vb = v + static_cast<int64_t>(b * Hkv + hk) * Sk * D;
+  float* ob = o + static_cast<int64_t>(b * H + h) * Sq * D;
+
+  int n_tiles = (Sk + BK - 1) / BK;
+  if (causal) {
+    const int last_k = min(q0 + BQ, Sq) - 1 + offset;
+    n_tiles = last_k < 0 ? 0 : min(n_tiles, last_k / BK + 1);
+  }
+
+  if (!C::kQInRegs) load_rows<D, BQ, LD, NT>(Qs, qb, q0, Sq, tid);
+  if (n_tiles > 0) {
+    load_rows<D, BK, LD, NT>(Ks, kb, 0, Sk, tid);
+    load_rows<D, BK, LD, NT>(Vs, vb, 0, Sk, tid);
+  }
+  cp_async_commit();
+
+  // this lane's two rows (g and g + 8 of the warp's 16)
+  const int row0 = q0 + warp * 16 + g;
+  const int qpos0 = row0 + offset, qpos1 = row0 + 8 + offset;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  float acc[NO][4];
+#pragma unroll
+  for (int c = 0; c < NO; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  // Q's A fragments (a0 row g col t4, a1 row g + 8, a2 col t4 + 4, a3
+  // both), split once: straight from device memory up to Dh 112
+  uint32_t qbig[KQ][4], qsmall[KQ][4];
+  if (C::kQInRegs) {
+    const float* r0 = qb + static_cast<int64_t>(row0) * D + t4;
+    const float* r1 = r0 + 8 * D;
+    const bool in0 = row0 < Sq, in1 = row0 + 8 < Sq;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+      split_tf32(in0 ? r0[kk * 8] : 0.f, qbig[kk][0], qsmall[kk][0]);
+      split_tf32(in1 ? r1[kk * 8] : 0.f, qbig[kk][1], qsmall[kk][1]);
+      split_tf32(in0 ? r0[kk * 8 + 4] : 0.f, qbig[kk][2], qsmall[kk][2]);
+      split_tf32(in1 ? r1[kk * 8 + 4] : 0.f, qbig[kk][3], qsmall[kk][3]);
+    }
+  }
+  const float* q_frag = Qs + (warp * 16 + g) * LD + t4;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      load_rows<D, BK, LD, NT>(Ks + (buf ^ 1) * BK * LD, kb, (t + 1) * BK, Sk,
+                           tid);
+      load_rows<D, BK, LD, NT>(Vs + (buf ^ 1) * BK * LD, vb, (t + 1) * BK, Sk,
+                           tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t landed; tile t - 1's small halves consumed
+    float* Kb = Ks + buf * BK * LD;
+    float* Vb = Vs + buf * BK * LD;
+    {
+      // split the tile once for all four warps: big over the raw value,
+      // small beside it
+      constexpr int kPieces = D / 4;
+      for (int e = tid; e < 2 * BK * kPieces; e += NT) {
+        const bool is_v = e >= BK * kPieces;
+        const int rem = is_v ? e - BK * kPieces : e;
+        const int off = (rem / kPieces) * LD + (rem % kPieces) * 4;
+        float* raw = (is_v ? Vb : Kb) + off;
+        const float4 x = *reinterpret_cast<const float4*>(raw);
+        uint32_t b0, s0, b1, s1, b2, s2, b3, s3;
+        split_tf32(x.x, b0, s0);
+        split_tf32(x.y, b1, s1);
+        split_tf32(x.z, b2, s2);
+        split_tf32(x.w, b3, s3);
+        *reinterpret_cast<float4*>(raw) =
+            make_float4(__uint_as_float(b0), __uint_as_float(b1),
+                        __uint_as_float(b2), __uint_as_float(b3));
+        *reinterpret_cast<float4*>((is_v ? Vss : Kss) + off) =
+            make_float4(__uint_as_float(s0), __uint_as_float(s1),
+                        __uint_as_float(s2), __uint_as_float(s3));
+      }
+    }
+    __syncthreads();  // the split is complete
+
+    // S = Q K^T, 16 rows x BK keys a warp; K's B fragment of an 8-key tile
+    // j: b0 key g col t4, b1 key g col t4 + 4.  The cross terms go to an
+    // accumulator of their own, so the score's accumulator takes one
+    // product a step: the tensor cores' sum drops low bits of a large one
+    float s[NS][4], sx[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sx[j][e] = 0.f;
+    const int k_off = g * LD + t4;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t(&ab)[4] = qbig[C::kQInRegs ? kk : 0];
+      uint32_t(&as)[4] = qsmall[C::kQInRegs ? kk : 0];
+      if (!C::kQInRegs) {
+        const float* r = q_frag + kk * 8;
+        split_tf32(r[0], ab[0], as[0]);
+        split_tf32(r[8 * LD], ab[1], as[1]);
+        split_tf32(r[4], ab[2], as[2]);
+        split_tf32(r[8 * LD + 4], ab[3], as[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int i = k_off + j * 8 * LD + kk * 8;
+        const uint32_t bb0 = __float_as_uint(Kb[i]),
+                       bb1 = __float_as_uint(Kb[i + 4]),
+                       bs0 = __float_as_uint(Kss[i]),
+                       bs1 = __float_as_uint(Kss[i + 4]);
+        mma_tf32(sx[j], as, bb0, bb1);
+        mma_tf32(sx[j], ab, bs0, bs1);
+        mma_tf32(s[j], ab, bb0, bb1);
+      }
+    }
+
+    // online softmax in the log2 domain
+    const int k0 = t * BK;
+    const bool edge =
+        k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + offset);
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (s[j][e] + sx[j][e]) * scale_log2;
+        if (edge) {
+          const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          if (kpos >= Sk || (causal && kpos > qpos)) x = kNegInf;
+        }
+        s[j][e] = x;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float corr0 = exp2_ftz(m0 - mn0), corr1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = exp2_ftz(s[j][0] - mn0);
+      s[j][1] = exp2_ftz(s[j][1] - mn0);
+      s[j][2] = exp2_ftz(s[j][2] - mn1);
+      s[j][3] = exp2_ftz(s[j][3] - mn1);
+      rs0 += s[j][0] + s[j][1];
+      rs1 += s[j][2] + s[j][3];
+    }
+    l0 = l0 * corr0 + rs0;
+    l1 = l1 * corr1 + rs1;
+#pragma unroll
+    for (int c = 0; c < NO; ++c) {
+      acc[c][0] *= corr0;
+      acc[c][1] *= corr0;
+      acc[c][2] *= corr1;
+      acc[c][3] *= corr1;
+    }
+
+    // O += P V over 8-key steps.  P's A fragment straight from the score
+    // accumulators, key 2 t4 as k-index t4 and key 2 t4 + 1 as t4 + 4; V's
+    // B fragment in the same key order: b0 key 2 t4, b1 key 2 t4 + 1, col
+    // g.  Each step's three products are summed alone and added to the
+    // output with a float32 add, for the same reason as above
+    const int v_off = 2 * t4 * LD + g;
+#pragma unroll
+    for (int kk = 0; kk < NS; ++kk) {
+      uint32_t pb[4], ps[4];
+      split_tf32(s[kk][0], pb[0], ps[0]);
+      split_tf32(s[kk][2], pb[1], ps[1]);
+      split_tf32(s[kk][1], pb[2], ps[2]);
+      split_tf32(s[kk][3], pb[3], ps[3]);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) {
+        const int i = v_off + kk * 8 * LD + c * 8;
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_3xtf32(w, pb, ps, __float_as_uint(Vb[i]),
+                   __float_as_uint(Vb[i + LD]), __float_as_uint(Vss[i]),
+                   __float_as_uint(Vss[i + LD]));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][e] += w[e];
+      }
+    }
+    __syncthreads();  // this stage is consumed; tile t + 2 may land in it
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < NO; ++c) {
+    const int col = c * 8 + 2 * t4;
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<int64_t>(row0) * D + col) =
+          make_float2(acc[c][0] / d0, acc[c][1] / d0);
+    if (row0 + 8 < Sq)
+      *reinterpret_cast<float2*>(ob + static_cast<int64_t>(row0 + 8) * D +
+                                 col) =
+          make_float2(acc[c][2] / d1, acc[c][3] / d1);
+  }
+}
+
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int H, int Hkv, int Sq, int Sk, int causal,
                cudaStream_t stream) {
-  const size_t smem = Smem<D>::kBytes;
+  const size_t smem = F32<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
-  flash_fwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, B, (Sq + F32<D>::kRows - 1) / F32<D>::kRows);
+  const float scale_log2 = static_cast<float>(
+      1.4426950408889634 / sqrt(static_cast<double>(D)));
+  flash_f32_kernel<D><<<grid, F32<D>::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
-      causal, scale);
+      causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -566,6 +775,22 @@ int launch(bool is_bf16, const void* q, const void* k, const void* v,
                                  stream);
 }
 
+// f(std::integral_constant<int, Dh>) for a head dim with an instance
+template <typename F>
+int with_head_dim(int64_t Dh, F&& f) {
+  switch (Dh) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 192: return f(std::integral_constant<int, 192>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int dispatch(bool is_bf16, const void* q, const void* k, const void* v,
              void* o, int64_t B, int64_t H, int64_t Hkv, int64_t Sq,
              int64_t Sk, int64_t Dh, int causal, void* stream) {
@@ -576,17 +801,35 @@ int dispatch(bool is_bf16, const void* q, const void* k, const void* v,
   const int b = static_cast<int>(B), h = static_cast<int>(H),
             hkv = static_cast<int>(Hkv), sq = static_cast<int>(Sq),
             sk = static_cast<int>(Sk);
-  switch (Dh) {
-    case 16: return launch<16>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 32: return launch<32>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 64: return launch<64>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 96: return launch<96>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 112: return launch<112>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 128: return launch<128>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 192: return launch<192>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    case 256: return launch<256>(is_bf16, q, k, v, o, b, h, hkv, sq, sk, causal, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return with_head_dim(Dh, [&](auto d) {
+    return launch<decltype(d)::value>(is_bf16, q, k, v, o, b, h, hkv, sq, sk,
+                                      causal, s);
+  });
+}
+
+// dynamic shared memory, registers, local (spill) bytes and resident
+// blocks an SM of the current device holds, of one instance
+template <int D>
+int resources(bool is_bf16, int64_t* out) {
+  const void* fn =
+      is_bf16 ? reinterpret_cast<const void*>(flash_bf16_kernel<D>)
+              : reinterpret_cast<const void*>(flash_f32_kernel<D>);
+  const size_t smem = is_bf16 ? Tc<D>::kBytes : F32<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, is_bf16 ? Tc<D>::kThreads : F32<D>::kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = static_cast<int64_t>(smem);
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int64_t>(attr.localSizeBytes);
+  out[3] = blocks;
+  return 0;
 }
 
 }  // namespace
@@ -610,6 +853,14 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          int64_t Sq, int64_t Sk, int64_t Dh, int causal,
                          void* stream) {
   return dispatch(true, q, k, v, o, B, H, Hkv, Sq, Sk, Dh, causal, stream);
+}
+
+// out[4]: dynamic shared memory bytes, registers a thread, local bytes a
+// thread and resident blocks an SM of the instance (is_bf16, Dh)
+int flash_attention_resources(int is_bf16, int64_t Dh, int64_t* out) {
+  return with_head_dim(Dh, [&](auto d) {
+    return resources<decltype(d)::value>(is_bf16 != 0, out);
+  });
 }
 
 }  // extern "C"

@@ -26,6 +26,9 @@ def _lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 4 + [_I64] * 6 + [ctypes.c_int, _P]
             fn.restype = ctypes.c_int
+        lib.flash_attention_resources.argtypes = [ctypes.c_int, _I64,
+                                                  ctypes.POINTER(_I64)]
+        lib.flash_attention_resources.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -60,8 +63,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "the CUDA flash-attention kernel is forward-only; run it under "
             "torch.inference_mode() or torch.no_grad()")
-    # the bfloat16 kernel copies 16-byte pieces: a view that starts off
-    # such a boundary is copied to fresh (aligned) memory first
+    # both instances copy 16-byte pieces: a view that starts off such a
+    # boundary is copied to fresh (aligned) memory first
     q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
         memory_format=torch.contiguous_format) for t in (q, k, v))
     out = torch.empty_like(q)
@@ -72,3 +75,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, Dh, int(causal))
     count_launch("flash_attention", (B, H, Hkv, Sq, Sk, Dh))
     return out
+
+
+def kernel_resources(dtype: torch.dtype, Dh: int) -> dict:
+    """What the instance for (``dtype``, ``Dh``) takes on the current CUDA
+    device: dynamic shared memory, registers and local (spill) bytes a
+    thread, and the blocks an SM holds at once."""
+    out = (_I64 * 4)()
+    lib = _lib()
+    err = lib.flash_attention_resources(int(dtype == torch.bfloat16), Dh,
+                                        out)
+    if err:
+        raise RuntimeError(f"flash_attention_resources failed: "
+                           f"{lib.error_string(err).decode()} ({err})")
+    return dict(zip(("smem_bytes", "registers", "local_bytes",
+                     "blocks_per_sm"), out))

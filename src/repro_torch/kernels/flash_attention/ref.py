@@ -4,8 +4,9 @@ The oracle of the CUDA kernel in ``flash_attention.cu`` and the CPU path
 of :mod:`repro_torch.kernels.flash_attention.ops`.  It follows the
 reference package's blocked algorithm step for step: queries in blocks of
 ``q_block``, keys in blocks of ``kv_block``, both padded to whole blocks,
-a running max ``m``, denominator ``l`` and accumulator ``acc`` in float32,
-and the finite mask value ``NEG_INF``.  Memory is O(S * block) instead of
+a running max ``m``, denominator ``l`` and accumulator ``acc`` in float32
+(float64 for float64 inputs: the yardstick of the kernel's accuracy), and
+the finite mask value ``NEG_INF``.  Memory is O(S * block) instead of
 the O(S^2) score matrix.
 
 Contract (shared with the kernel and ``ops.py``):
@@ -29,6 +30,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dtype = q.dtype
+    work = torch.float64 if dtype == torch.float64 else torch.float32
     groups = H // Hkv
     if groups > 1:
         k = k.repeat_interleave(groups, dim=1)
@@ -39,23 +41,21 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # pad to block multiples
     pq = (-Sq) % q_block
     pk = (-Sk) % kv_block
-    q = F.pad(q, (0, 0, 0, pq)).float()
-    k = F.pad(k, (0, 0, 0, pk)).float()
-    v = F.pad(v, (0, 0, 0, pk)).float()
+    q = F.pad(q, (0, 0, 0, pq)).to(work)
+    k = F.pad(k, (0, 0, 0, pk)).to(work)
+    v = F.pad(v, (0, 0, 0, pk)).to(work)
     nq = q.shape[2] // q_block
     nk = k.shape[2] // kv_block
     offset = Sk - Sq  # causal alignment
     scale = 1.0 / math.sqrt(Dh)
     dev = q.device
 
-    out = torch.empty((B, H, nq * q_block, Dh), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((B, H, nq * q_block, Dh), dtype=work, device=dev)
     for qi in range(nq):
         qc = q[:, :, qi * q_block:(qi + 1) * q_block]
         acc = torch.zeros_like(qc)
-        m = torch.full(qc.shape[:3], NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros(qc.shape[:3], dtype=torch.float32, device=dev)
+        m = torch.full(qc.shape[:3], NEG_INF, dtype=work, device=dev)
+        l = torch.zeros(qc.shape[:3], dtype=work, device=dev)
         qpos = qi * q_block + torch.arange(q_block, device=dev) + offset
         for kj in range(nk):
             kc = k[:, :, kj * kv_block:(kj + 1) * kv_block]

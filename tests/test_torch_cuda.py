@@ -13,7 +13,9 @@ refine branch of a placement on the card must return the placement the
 plain versions return on the CPU, having launched the kernel of its
 branch.  The attention and normalisation kernels are held to their plain
 versions within the reference's kernel-test tolerances (2e-5 in float32,
-2e-2 in bfloat16), the SSD scan kernel within that test's 5e-5 / 5e-2 to
+2e-2 in bfloat16; the float32 flash kernel, 3xTF32 on the tensor cores,
+is also held to the plain version run in float64, at most twice as far
+from it as the float32 plain version), the SSD scan kernel within that test's 5e-5 / 5e-2 to
 the exact recurrence and to the chunked algorithm, and the models'
 forwards through the kernels to their forwards through the plain
 versions within 1e-4 (zamba2-7b and minicpm3-4b at full width with their
@@ -230,6 +232,45 @@ def test_flash_kernel_model_head_dims_match_plain(cuda_device, B, H, Hkv,
     assert LAUNCHES["flash_attention"] == 1 and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+# reduced copies of the model shapes the float32 kernel runs: smollm-135m's
+# Dh 64 (9 heads over 3), minicpm3-4b's 96 and zamba2-7b's 112, B 1 x 512
+F64_SHAPES = [
+    (1, 9, 3, 512, 512, 64),
+    (1, 8, 8, 512, 512, 96),
+    (1, 8, 8, 512, 512, 112),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", F64_SHAPES)
+def test_flash_kernel_f32_as_accurate_as_plain_f32(cuda_device, B, H, Hkv,
+                                                   Sq, Sk, Dh):
+    """The float32 kernel (3xTF32 on the tensor cores), held to the plain
+    version run in float64, is at most twice as far from it as the float32
+    plain version, and returns the same output whatever ``allow_tf32``
+    says."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device)
+               for shape in ((B, H, Sq, Dh), (B, Hkv, Sk, Dh),
+                             (B, Hkv, Sk, Dh)))
+    flag = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        got = flash_attention(q, k, v, causal=True, impl="kernel")
+        plain = flash_attention_ref(q, k, v, causal=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again = flash_attention(q, k, v, causal=True, impl="kernel")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                causal=True)
+    torch.cuda.synchronize()
+    assert exact.dtype == torch.float64
+    assert torch.equal(got, again)
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device):

@@ -425,6 +425,135 @@ def test_flash_bf16_rounding_of_p_holds_tolerance(B, H, Hkv, Sq, Sk, Dh,
                                    atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
 
 
+def _tf32_rna(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it (and the float32
+    kernel's integer form of it): to nearest, ties away from zero, keeping
+    10 explicit mantissa bits (float32's low 13 bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split_tf32(x):
+    big = _tf32_rna(x)
+    return big, _tf32_rna(x - big)
+
+
+def _tf32_product(a, b, products):
+    """a @ b from TF32 halves, as the float32 kernel's tensor-core products:
+    big x big, plus (with three products) the two cross terms; each product
+    of TF32 values is exact in float32, the sums are float32's."""
+    ab, as_ = _split_tf32(a)
+    bb, bs = _split_tf32(b)
+    out = ab @ bb
+    if products == 3:
+        out = out + (as_ @ bb + ab @ bs)
+    return out
+
+
+def _flash_3xtf32_design(q, k, v, causal, block_k=64, products=3):
+    """The arithmetic of the float32 tensor-core flash kernel: Q, K, V and P
+    split into TF32 halves, each product as three TF32 products summed in
+    float32 (``products=1``: big x big alone, plain TF32), and the online
+    softmax in the log2 domain over tiles of ``block_k`` keys."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(H // Hkv, dim=1)
+    v = v.float().repeat_interleave(H // Hkv, dim=1)
+    q = q.float()
+    scale = torch.tensor(1.4426950408889634 / np.sqrt(Dh),
+                         dtype=torch.float32)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, Dh))
+    qpos = torch.arange(Sq) + Sk - Sq
+    for k0 in range(0, Sk, block_k):
+        kpos = torch.arange(k0, min(Sk, k0 + block_k))
+        s = _tf32_product(q, k[:, :, kpos].transpose(-1, -2),
+                          products) * scale
+        if causal:
+            s = torch.where(kpos[None, :] <= qpos[:, None], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp2(s - m_new[..., None])
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _tf32_product(p, v[:, :, kpos],
+                                                    products)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+# the key tile of the float32 kernel at each head dim
+F32_BLOCK_K = {16: 64, 32: 64, 64: 64, 96: 64, 112: 32, 128: 32, 192: 32,
+               256: 16}
+F32_DESIGN_CASES = FLASH_CASES + [
+    (1, 2, 1, 70, 300, 96, True),     # minicpm3's head dim: Sq < Sk, ragged
+    (1, 8, 8, 130, 130, 96, True),
+    (1, 4, 4, 130, 130, 112, False),  # zamba2's head dim, non-causal
+    (1, 2, 1, 70, 300, 112, True),
+    (1, 2, 2, 100, 100, 192, True),
+    (1, 2, 1, 65, 190, 256, True),
+]
+
+
+def _f32_design_vs_references(case, products):
+    """(largest error from the Pallas kernel in interpret mode, largest
+    error from the reference's plain version) of the design on ``case``."""
+    B, H, Hkv, Sq, Sk, Dh, causal = case
+    arrs = _qkv(B, H, Hkv, Sq, Sk, Dh)
+    jq, jk, jv = (jnp.asarray(a) for a in arrs)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrs)
+    got = _flash_3xtf32_design(tq, tk, tv, causal,
+                               block_k=F32_BLOCK_K[Dh],
+                               products=products).numpy()
+    wants = (flash_attention_tpu(jq, jk, jv, causal=causal, block_q=32,
+                                 block_k=32, interpret=True),
+             jax_flash_ref(jq, jk, jv, causal=causal))
+    return tuple(float(np.abs(got - np.asarray(w, np.float32)).max())
+                 for w in wants), got, wants
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", F32_DESIGN_CASES)
+def test_flash_3xtf32_design_holds_float32_tolerance(B, H, Hkv, Sq, Sk, Dh,
+                                                     causal):
+    """Three TF32 products for each float32 one, as the float32 tensor-core
+    kernel computes them, keep the output within the reference's float32
+    tolerance of the Pallas kernel in interpret mode and of the
+    reference's plain version."""
+    _, got, wants = _f32_design_vs_references(
+        (B, H, Hkv, Sq, Sk, Dh, causal), products=3)
+    for want in wants:
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=TOL["float32"], rtol=TOL["float32"])
+
+
+@pytest.mark.parametrize("x,want", [
+    (1 + 2.0 ** -11, 1 + 2.0 ** -10),           # a tie: away from zero
+    (-(1 + 2.0 ** -11), -(1 + 2.0 ** -10)),     # negative tie
+    (1 + 3 * 2.0 ** -12, 1 + 2.0 ** -10),       # above half an ulp: up
+    (1 + 2.0 ** -12, 1.0),                      # below half an ulp: down
+    (2 - 2.0 ** -12, 2.0),                      # a carry into the exponent
+    (0.0, 0.0),
+    (-0.0, -0.0),
+    (3.0, 3.0),                                 # already TF32
+])
+def test_tf32_rna_rounds_to_nearest_ties_away(x, want):
+    got = _tf32_rna(torch.tensor([x], dtype=torch.float32))
+    want = torch.tensor([want], dtype=torch.float32)
+    assert got.view(torch.int32).item() == want.view(torch.int32).item()
+    big, small = _split_tf32(torch.tensor([x], dtype=torch.float32))
+    assert float(big) + float(small) == x      # exact: x has 13 bits
+
+
+def test_flash_single_tf32_misses_float32_tolerance():
+    """One TF32 product (big x big alone, what the tensor cores give a
+    float32 product with TF32 on) misses the reference's float32 tolerance
+    on cases where three products hold it (the test above): the reason
+    the kernel pays for three."""
+    worst = {case: max(_f32_design_vs_references(case, products=1)[0])
+             for case in F32_DESIGN_CASES[:3]}
+    assert max(worst.values()) > TOL["float32"], worst
+
+
 # -------------------------------------------------------------- rmsnorm
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (130, 256),
