@@ -57,6 +57,19 @@ toolkit.  The script
    ``ssd_scan`` and 13 ``flash_attention`` launches; minicpm3: 62
    ``flash_attention``), 8 decode steps held to that forward, and the
    serve driver;
+7b. runs the MoE family at full width after holding ``flash_attention`` at
+   its head dims (phi3.5-moe-42b's 128, deepseek-v2-lite-16b's 192 with V
+   padded from 128), float32 against the float64 plain version too:
+   deepseek-v2-lite cut to 2 layers (one dense, one MoE) on NumPy-seeded
+   weights, B 1 x 2048, held to ``EXPECTED_DSV2``; all 27 layers on a
+   2 x 2048-token forward, held to its plain-version forward by the
+   routing rule (``routing_verdict``: a token sent to other experts is
+   allowed only where its router probabilities tie within 1e-4 of the
+   k-th, and the logits before each row's first such token are held
+   within 1e-4), 8 decode steps held to that forward by the same rule,
+   and the serve driver; then phi3.5-moe-42b cut to ``PHI35_DEPTH``
+   layers, its forward and 8 decode steps held the same way (no serve
+   driver: it would build all 32 layers);
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -82,8 +95,8 @@ toolkit.  The script
    the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
    guest must launch ``swap_select``.
 
-Steps 5 to 7a run between steps 2 and 3; ``ssd_scan`` and the new shapes
-of step 7a are checked with the other model kernels in step 5.  Each phase
+Steps 5 to 7b run between steps 2 and 3; ``ssd_scan`` and the new shapes
+of steps 7a and 7b are checked with the other model kernels in step 5.  Each phase
 prints one JSON line.  Then come the kernel summary line, the card's name
 and power limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
@@ -95,6 +108,7 @@ The script imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -283,6 +297,21 @@ EXPECTED_MINICPM3 = [
     [14733, -319.2522032801062, 0.11726045608520508, 275.1309757798686],
     [19628, -198.0785928685218, 0.31125354766845703, 274.01266138207285],
     [2722, 399.5780456913635, 0.3611917495727539, 273.16618967684485],
+]
+# The cut-depth deepseek-v2-lite-16b forward (2 layers: layer 0 dense,
+# layer 1 MoE with 64 experts top-6 and 2 shared; full width; B 1 x 2048
+# tokens: the flash branch with V padded 128 -> 192) is held at these.
+DSV2_HELD_POSITIONS = (0, 1023, 2047)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(deepseek-v2-lite-16b with n_layers=2, seed=0) and
+# SyntheticDataset(102400, 2048, 1, seed=0).batch(0) at
+# DSV2_HELD_POSITIONS.  Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_moe.py -k expected_deepseek
+EXPECTED_DSV2 = [
+    [44783, 537.3467696146108, 0.1911776065826416, 289.0076596816154],
+    [95756, 369.65182813233696, 0.42598867416381836, 290.85648175541644],
+    [50262, -84.17194872675464, 0.16052865982055664, 289.12154153873934],
 ]
 
 
@@ -617,27 +646,56 @@ def place_phase(name: str, request, policies=("tofa",),
             raise AssertionError(f"{key} failed its check")
 
 
-def profiled(run, key: str) -> dict:
+def profiled(run, key: str, spans=()) -> dict:
     """``run()`` once more, warm, under torch.profiler: wall time, summed
-    device time of every kernel and copy, and the device idle share."""
+    device time of every kernel and copy, and the device idle share.
+
+    ``spans`` are (module, function name, label): each function is wrapped
+    in ``record_function(label)`` for the run, and the device time of the
+    kernels it launched is reported by label (``span_device_s``), beside
+    the ``flash_attention`` kernel's and the matrix products' (kernels
+    named ``*gemm*``)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def in_span(label, fn):
+        def wrapper(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return wrapper
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    labels = {label for *_, label in spans}
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        for module, name, label in spans:
+            stack.enter_context(patched(module, name,
+                                        lambda f, lb=label: in_span(lb, f)))
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     ka = prof.key_averages()
     # "Command Buffer Full" is CUPTI's record of the host waiting on a
-    # full launch queue, not work on the card: kept apart from busy time
+    # full launch queue, not work on the card: kept apart from busy time;
+    # so are the spans' own device-side ranges
     stalls = [e for e in ka if e.key == "Command Buffer Full"]
     dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
-                  and e.key != "Command Buffer Full"]
+                  and e.key != "Command Buffer Full" and e.key not in labels]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e6
+    extra = {}
+    if spans:
+        extra["span_device_s"] = {
+            label: sum(e.device_time_total for e in ka if e.key == label
+                       and e.device_type == DeviceType.CPU) / 1e6
+            for label in sorted(labels)}
+        for part, test in (("flash_attention", lambda k: "flash" in k),
+                           ("gemm", lambda k: "gemm" in k.lower())):
+            extra[f"{part}_device_s"] = sum(
+                e.self_device_time_total for e in dev_events
+                if test(e.key)) / 1e6
     OUT_DIR.mkdir(exist_ok=True)
     fname = OUT_DIR / ("profile_" + key.replace("/", "_") + ".txt")
     fname.write_text(
@@ -647,7 +705,18 @@ def profiled(run, key: str) -> dict:
             "device_idle_share": 1.0 - busy / wall,
             "device_ops": sum(e.count for e in dev_events),
             "command_buffer_full_s": sum(e.self_device_time_total
-                                         for e in stalls) / 1e6}
+                                         for e in stalls) / 1e6, **extra}
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """``owner.name`` replaced by ``wrap(owner.name)`` inside the block."""
+    orig = getattr(owner, name)
+    setattr(owner, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
 
 
 # launches of each kernel on the path that needs it (the placement phases,
@@ -1214,6 +1283,21 @@ FLASH_MAIN = (2, 9, 3, 2048, 2048, 64)
 # 2048, which their full-depth forwards hand the flash kernel
 FLASH_ZAMBA2 = (2, 32, 32, 2048, 2048, 112)
 FLASH_MINICPM3 = (2, 40, 40, 2048, 2048, 96)
+# phi3.5-moe-42b's GQA (32 heads of 128 over 8 KV heads) and the MLA
+# prefill of deepseek-v2-lite-16b (16 heads, q/k of 128 + 64, V padded
+# from 128 to 192) at B 2 x 2048
+FLASH_PHI35 = (2, 32, 8, 2048, 2048, 128)
+FLASH_DSV2 = (2, 16, 16, 2048, 2048, 192)
+# phi3.5-moe-42b's depth on one card.  The whole model (32 layers of
+# 1.300 B parameters, 167.5 GB in float32) needs several cards; 12 layers
+# (63.5 GB) fit one.  But at its full width float32 rounding compounds
+# with depth past the forward's 1e-4 hold: two plain forwards that differ
+# only in the attention's summation order reach 0.61 / 0.70 / 0.96 of the
+# allowance at 6 / 8 / 12 layers, the kernel's forward against the plain
+# one 0.83 / 1.04 / 1.32 (tools/forward_drift.py).  6 layers (7.80 B
+# parameters, 31.2 GB) is the deepest cut where that noise floor stays
+# under two thirds of the allowance.
+PHI35_DEPTH = 6
 RMSNORM_MAIN = (2 * 2048, 576)           # (rows, D): smollm's activations
 SWAP_GAIN_N = 1024
 
@@ -1458,7 +1542,8 @@ def model_kernel_phase(dev) -> dict:
     import torch
     recs = {name: {} for name in ("flash_attention", "rmsnorm",
                                   "swap_gain", "ssd_scan")}
-    for shape in (FLASH_MAIN, FLASH_ZAMBA2, FLASH_MINICPM3):
+    for shape in (FLASH_MAIN, FLASH_ZAMBA2, FLASH_MINICPM3, FLASH_PHI35,
+                  FLASH_DSV2):
         for dt in ("float32", "bfloat16"):
             rec = check_flash(dev, dt, shape, "kernels/model",
                               f64=dt == "float32")
@@ -1535,38 +1620,183 @@ def entry_point_phase(dev) -> None:
         raise AssertionError("an entry point did not launch its kernel")
 
 
+# --------------------------------------------------- MoE routing records
+# A MoE forward through the kernels may send a token to other experts than
+# the plain versions' forward does where two of its router probabilities
+# tie within rounding (a "flip").  A flip is a near-tie when, in the run
+# it is held to, the gap from the token's k-th to its (k+1)-th probability
+# is at most this share of the k-th.
+MOE_NEAR_TIE = 1e-4
+
+
+def recording_routes(calls: list):
+    """A context in which every ``repro_torch.models.moe.route`` call also
+    appends to ``calls``, for its T tokens: (the ids in ascending order (T,
+    k), the k-th probability (T,), the gap from the k-th to the (k+1)-th
+    probability (T,))."""
+    import torch
+    from repro_torch.models import moe
+
+    def wrap(route):
+        def recorded(logits, top_k):
+            out = route(logits, top_k)
+            top = torch.topk(torch.softmax(logits.float(), dim=-1),
+                             top_k + 1, dim=-1).values
+            calls.append((out[1].sort(dim=-1).values, top[:, top_k - 1],
+                          top[:, top_k - 1] - top[:, top_k]))
+            return out
+        return recorded
+    return patched(moe, "route", wrap)
+
+
+def counting_host_syncs(counter: list):
+    """A context in which each MoE layer's read of its group offsets to the
+    host appends to ``counter``."""
+    from repro_torch.models import moe
+
+    def wrap(read):
+        def counted(offsets):
+            counter.append(1)
+            return read(offsets)
+        return counted
+    return patched(moe, "_host_offsets", wrap)
+
+
+def moe_spans() -> tuple:
+    """The profiler spans of a MoE forward: routing (softmax, top-k, sort,
+    gather) and the expert products."""
+    from repro_torch.models import moe
+    return ((moe, "route", "moe/routing"),
+            (moe, "_sort_by_expert", "moe/routing"),
+            (moe, "_expert_mlp_sorted", "moe/experts"))
+
+
+def by_position(calls: list, B: int) -> list:
+    """A forward's route records (B·S tokens a call, one call a MoE layer)
+    as (B, S, ...) per layer."""
+    return [tuple(t.reshape(B, -1, *t.shape[1:]) for t in c) for c in calls]
+
+
+def by_step(calls: list, n_layers: int) -> list:
+    """Decode steps' route records (B tokens a call, ``n_layers`` calls a
+    step) as (B, steps, ...) per layer."""
+    import torch
+    return [tuple(torch.stack(parts, dim=1)
+                  for parts in zip(*calls[layer::n_layers]))
+            for layer in range(n_layers)]
+
+
+def routing_verdict(got_routes, want_routes, got, want,
+                    first_layer: int) -> dict:
+    """The routing rule of the MoE cells.  ``got_routes``/``want_routes``:
+    per MoE layer (ids (B, S, k), k-th probability (B, S), gap (B, S)) of
+    the run under test and of the run it is held to; ``got``/``want``:
+    their logits (B, S, V).
+
+    A flip is a token whose set of experts differs.  Causal attention
+    carries a flip at (layer, row, position) to the same and later
+    positions of that row in later layers, which may flip there in turn.
+    Every flip that no earlier layer's flip reaches must be a near-tie in
+    the held run (``MOE_NEAR_TIE``), and the logits must agree within 1e-4
+    at every position of each row before the row's first flip.  Without
+    flips that is ``allclose`` over every position."""
+    import torch
+
+    B, S = got.shape[:2]
+    flips, roots = [], []
+    reach = [S] * B          # each row's first flip in the layers so far
+    for layer, ((g_ids, _, _), (w_ids, w_kth, w_gap)) in enumerate(
+            zip(got_routes, want_routes)):
+        rel = (w_gap / w_kth).cpu()
+        here = list(reach)
+        for b, pos in (g_ids != w_ids).any(-1).nonzero().tolist():
+            flip = {"layer": first_layer + layer, "row": b, "pos": pos,
+                    "gap_rel": float(rel[b, pos])}
+            flips.append(flip)
+            if pos < reach[b]:
+                roots.append(flip)
+            here[b] = min(here[b], pos)
+        reach = here
+    held_ok, held_err = True, 0.0
+    for b, n in enumerate(reach):
+        if n:
+            held_ok &= bool(torch.allclose(got[b, :n], want[b, :n],
+                                           atol=1e-4, rtol=1e-4))
+            held_err = max(held_err,
+                           float((got[b, :n] - want[b, :n]).abs().max()))
+    gaps = torch.cat([(w_gap / w_kth).flatten()
+                      for _, w_kth, w_gap in want_routes])
+    return {"route_calls": len(got_routes), "flips": len(flips),
+            "root_flips": len(roots), "flipped": flips[:24],
+            "min_flip_gap_rel": min((f["gap_rel"] for f in flips),
+                                    default=None),
+            "max_root_gap_rel": max((f["gap_rel"] for f in roots),
+                                    default=None),
+            "min_gap_rel": float(gaps.min()), "first_flip_pos": reach,
+            "max_abs_err_before_flips": held_err,
+            "ok": (len(got_routes) == len(want_routes) and held_ok
+                   and all(f["gap_rel"] <= MOE_NEAR_TIE for f in roots))}
+
+
 def run_forward(model, toks, launches: dict, key: str):
     """The forward of ``model`` on ``toks`` cold, warm, once more under
     the profiler, and through the plain versions (``impl="ref"``), held
     within 1e-4 of each other.  ``launches`` maps each kernel the forward
     must go through to its launches per forward; the counts are zeroed
-    just before the cold forward and read just after it.  Returns
-    (logits, record)."""
+    just before the cold forward and read just after it.
+
+    A MoE model's cold and plain forwards record their routes, the cold
+    forward counts its host syncs, and the two forwards are held to each
+    other by ``routing_verdict``.  Returns (logits, record, the cold
+    forward's routes by position or None)."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     names = tuple(launches)
+    moe = model.cfg.family == "moe"
+    got_routes, want_routes, syncs = [], [], []
+
+    def recording(calls):
+        stack = contextlib.ExitStack()
+        if moe:
+            stack.enter_context(recording_routes(calls))
+            stack.enter_context(counting_host_syncs(syncs))
+        return stack
+
     with torch.inference_mode():
         reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits = model(toks)
-        torch.cuda.synchronize()
+        with recording(got_routes):
+            logits = model(toks)
+            torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         got = _count_path(names)
         peak = torch.cuda.max_memory_allocated()
+        n_syncs = len(syncs)
         t0 = time.perf_counter()
         model(toks)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        prof = profiled(lambda: model(toks), key)
+        prof = profiled(lambda: model(toks), key,
+                        spans=moe_spans() if moe else ())
         total = {name: LAUNCHES[name] for name in names}
-        plain = model(toks, impl="ref")
-        torch.cuda.synchronize()
+        with recording(want_routes):
+            plain = model(toks, impl="ref")
+            torch.cuda.synchronize()
     err = float((logits - plain).abs().max())
-    plain_ok = bool(torch.allclose(logits, plain, atol=1e-4, rtol=1e-4))
-    del plain
+    routes, extra = None, {}
+    if moe:
+        routes = by_position(got_routes, toks.shape[0])
+        extra["routing"] = routing_verdict(
+            routes, by_position(want_routes, toks.shape[0]), logits, plain,
+            model.cfg.moe.first_dense)
+        extra["host_syncs_per_forward"] = n_syncs
+        plain_ok = extra["routing"]["ok"]
+    else:
+        plain_ok = bool(torch.allclose(logits, plain, atol=1e-4, rtol=1e-4))
+    del plain, want_routes
     B, S = toks.shape
     n = model.cfg.n_layers
     rec = {"phase": key, "dtype": str(logits.dtype).replace("torch.", ""),
@@ -1575,13 +1805,13 @@ def run_forward(model, toks, launches: dict, key: str):
            "peak_mem_mb": peak / 2**20,
            "launches_per_forward": got,
            "launches_in_three_forwards": total,
-           "max_abs_err_vs_plain": err, "plain_ok": plain_ok, **prof,
-           "finite": bool(torch.isfinite(logits).all()),
+           "max_abs_err_vs_plain": err, "plain_ok": plain_ok, **extra,
+           **prof, "finite": bool(torch.isfinite(logits).all()),
            "shape_ok": tuple(logits.shape) == (B, S, model.cfg.vocab)}
     rec["ok"] = (got == launches
                  and total == {k: 3 * v for k, v in launches.items()}
                  and plain_ok and rec["finite"] and rec["shape_ok"])
-    return logits, rec
+    return logits, rec, routes
 
 
 def held_to_reference(logits, positions, expected) -> dict:
@@ -1614,9 +1844,9 @@ def model_phase(dev):
     toks = toks.to(dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    logits, rec = run_forward(model, toks,
-                              {"flash_attention": cfg.n_layers},
-                              "model/smollm-135m/forward-2048")
+    logits, rec, _ = run_forward(model, toks,
+                                 {"flash_attention": cfg.n_layers},
+                                 "model/smollm-135m/forward-2048")
     rec.update(load_s=load_s, **held_to_reference(logits, HELD_POSITIONS,
                                                   EXPECTED_FORWARD))
     rec["ok"] = rec["ok"] and rec["reference_ok"]
@@ -1688,64 +1918,88 @@ def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
                              f"checks")
 
 
-def full_depth_phase(dev, arch: str):
-    """``arch`` at full width and depth, float32, weights drawn on the
-    card from seed 0: the B 2 x 2048 forward through the kernels
-    (``run_forward``), held to the plain versions' forward.  Returns
-    (model, tokens, logits of the first 8 positions) for the decode
+def full_depth_phase(dev, arch: str, depth: int | None = None):
+    """``arch`` at full width and depth (or its depth cut to ``depth``
+    layers), float32, weights drawn on the card from seed 0: the B 2 x
+    2048 forward through the kernels (``run_forward``), held to the plain
+    versions' forward.  Returns (model, tokens, logits of the first 8
+    positions, a MoE model's routes there or None) for the decode
     phase."""
+    import dataclasses
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.models import model as M
     from repro_torch.train.data import SyntheticDataset
 
     cfg = get_arch(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
     model = M.init(cfg, seed=0, device=dev)
     toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
     toks = toks.to(dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    logits, rec = run_forward(model, toks, per_forward_launches(cfg, 2048),
-                              f"model/{arch}/forward-2048")
+    logits, rec, routes = run_forward(
+        model, toks, per_forward_launches(cfg, 2048),
+        f"model/{arch}/forward-2048" + (f"-L{depth}" if depth else ""))
     rec["load_s"] = load_s
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"the {arch} forward failed its checks")
-    return model, toks, logits[:, :8].clone()
+    if routes is not None:
+        routes = [tuple(t[:, :8].clone() for t in c) for c in routes]
+    return model, toks, logits[:, :8].clone(), routes
 
 
-def model_family_phase(dev, arch: str, cut: tuple) -> None:
-    """The cut-depth forward (``cut``: layers, B, S, held positions,
-    expected summary), then the full-depth forward, 8 decode steps held
-    to it and the serve driver; each model is freed before the next."""
+def model_family_phase(dev, arch: str, cut: tuple | None = None,
+                       depth: int | None = None, serve: bool = True) -> None:
+    """The cut-depth forward held to the reference (``cut``: layers, B, S,
+    held positions, expected summary; None skips it), then the forward at
+    full depth (or at ``depth`` layers), 8 decode steps held to it and,
+    with ``serve``, the serve driver; each model is freed before the
+    next."""
     import torch
-    cut_depth_phase(dev, arch, *cut)
+    if cut is not None:
+        cut_depth_phase(dev, arch, *cut)
+        torch.cuda.empty_cache()
+    model, toks, fwd_logits, fwd_routes = full_depth_phase(dev, arch, depth)
+    decode_phase(model, toks, fwd_logits, fwd_routes)
+    del model, toks, fwd_logits, fwd_routes
     torch.cuda.empty_cache()
-    model, toks, fwd_logits = full_depth_phase(dev, arch)
-    decode_phase(model, toks, fwd_logits)
-    del model, toks, fwd_logits
-    torch.cuda.empty_cache()
-    serve_phase(arch)
+    if serve:
+        serve_phase(arch)
 
 
-def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
+def decode_phase(model, toks, fwd_logits, fwd_routes=None,
+                 steps: int = 8) -> None:
     """``steps`` decode steps from empty caches, each held to the
-    forward's logits at the same position (atol = rtol = 1e-4); then the
-    same steps again, timed without the checks, and once more under the
-    profiler."""
+    forward's logits at the same position (atol = rtol = 1e-4; a MoE
+    model's by ``routing_verdict`` against the forward's routes
+    ``fwd_routes``); then the same steps again, timed without the checks,
+    and once more under the profiler."""
     import torch
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.kvcache import init_cache
 
     B = toks.shape[0]
     caches = init_cache(model.cfg, B, steps, device=model.device)
-    err, ok = 0.0, True
-    for t in range(steps):
-        got, caches = decode_step(model, caches, toks[:, t:t + 1], t)
-        ok &= bool(torch.allclose(got[:, 0], fwd_logits[:, t], atol=1e-4,
-                                  rtol=1e-4))
-        err = max(err, float((got[:, 0] - fwd_logits[:, t]).abs().max()))
+    calls, outs = [], []
+    with (recording_routes(calls) if fwd_routes is not None
+          else contextlib.nullcontext()):
+        for t in range(steps):
+            got, caches = decode_step(model, caches, toks[:, t:t + 1], t)
+            outs.append(got[:, 0])
+    got, want = torch.stack(outs, dim=1), fwd_logits[:, :steps]
+    err, extra = float((got - want).abs().max()), {}
+    if fwd_routes is None:
+        ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
+    else:
+        extra["routing"] = routing_verdict(
+            by_step(calls, len(model.blocks)),
+            [tuple(t[:, :steps] for t in c) for c in fwd_routes], got, want,
+            model.cfg.moe.first_dense)
+        ok = extra["routing"]["ok"]
 
     def run():
         c = init_cache(model.cfg, B, steps, device=model.device)
@@ -1760,7 +2014,7 @@ def decode_phase(model, toks, fwd_logits, steps: int = 8) -> None:
     key = f"model/{model.cfg.name}/decode-{steps}"
     emit({"phase": key, "batch": B, "steps": steps, "s": wall,
           "ms_per_step": wall / steps * 1e3, **profiled(run, key),
-          "max_abs_err_vs_forward": err, "ok": ok})
+          "max_abs_err_vs_forward": err, **extra, "ok": ok})
     if not ok:
         raise AssertionError("decode disagrees with the forward")
 
@@ -1857,16 +2111,21 @@ def main() -> int:
         traceback.print_exc()
         failed.append("model")
     torch.cuda.empty_cache()
-    for arch, cut in (
-            ("mamba2-2.7b", (2, 2, 256, MAMBA2_HELD_POSITIONS,
-                             EXPECTED_MAMBA2)),
-            ("zamba2-7b", (7, 2, 256, ZAMBA2_HELD_POSITIONS,
-                           EXPECTED_ZAMBA2)),
-            ("minicpm3-4b", (2, 1, 2048, MINICPM3_HELD_POSITIONS,
-                             EXPECTED_MINICPM3))):
+    for arch, kw in (
+            ("mamba2-2.7b", dict(cut=(2, 2, 256, MAMBA2_HELD_POSITIONS,
+                                      EXPECTED_MAMBA2))),
+            ("zamba2-7b", dict(cut=(7, 2, 256, ZAMBA2_HELD_POSITIONS,
+                                    EXPECTED_ZAMBA2))),
+            ("minicpm3-4b", dict(cut=(2, 1, 2048, MINICPM3_HELD_POSITIONS,
+                                      EXPECTED_MINICPM3))),
+            ("deepseek-v2-lite-16b", dict(cut=(2, 1, 2048,
+                                               DSV2_HELD_POSITIONS,
+                                               EXPECTED_DSV2))),
+            # no serve step: the driver would build all 32 layers
+            ("phi3.5-moe-42b", dict(depth=PHI35_DEPTH, serve=False))):
         t0 = time.perf_counter()
         try:
-            model_family_phase(dev, arch, cut)
+            model_family_phase(dev, arch, **kw)
         except Exception:                   # reported, and the run fails
             traceback.print_exc()
             failed.append(arch)

@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
-``--arch`` takes the dense GQA models, minicpm3-4b (MLA), mamba2-2.7b
-and zamba2-7b (hybrid); MoE, VLM and encoder-decoder archs raise
-``NotImplementedError``.  The driver
-prefills token by token through the decode step, as the reference's
+``--arch`` takes the dense GQA models, minicpm3-4b (MLA), the MoE models
+(deepseek-v2-lite-16b; phi3.5-moe-42b, whose 167.5 GB of float32 weights
+fit one card only with ``--reduced``), mamba2-2.7b and zamba2-7b
+(hybrid); VLM and encoder-decoder archs raise ``NotImplementedError``.
+The driver prefills token by token through the decode step, as the reference's
 driver does, then decodes greedily, under ``torch.inference_mode()``.
 The weights are random, drawn from ``--seed`` on the target device.
 """

@@ -13,12 +13,15 @@ orientation, so loading one into the other is a slice per layer
 that correspondence.
 
 The port runs the dense family with GQA or MLA attention (smollm-135m,
-starcoder2-7b, nemotron-4-340b, minicpm3-4b), the SSM family
-(mamba2-2.7b) and the hybrid family (zamba2-7b: groups of mamba2 layers,
-each followed by one shared attention block, then trailing mamba2
-layers); MoE, VLM and encoder-decoder models raise
-``NotImplementedError``.  The port is single-device: the reference's
-sharding context is not carried over.
+starcoder2-7b, nemotron-4-340b, minicpm3-4b), the MoE family
+(phi3.5-moe-42b; deepseek-v2-lite-16b, whose leading dense layers sit in
+``dense0`` before the MoE ``blocks``), the SSM family (mamba2-2.7b) and
+the hybrid family (zamba2-7b: groups of mamba2 layers, each followed by
+one shared attention block, then trailing mamba2 layers); VLM and
+encoder-decoder models raise ``NotImplementedError``.  The port is
+single-device: the reference's sharding context is not carried over, and
+a MoE layer runs all its experts on the one device
+(:func:`~repro_torch.models.moe.moe_ffn_local`).
 """
 from __future__ import annotations
 
@@ -32,11 +35,11 @@ from repro_torch.core.backend import resolve_device
 from repro_torch.models.layers import (ParamDef, gqa_attention, gqa_schema,
                                        init_, mla_attention, mla_schema, mlp,
                                        mlp_schema, rmsnorm, rope_freqs)
+from repro_torch.models.moe import moe_ffn_local, moe_schema
 from repro_torch.models.ssm import mamba2_block, mamba2_schema
 
 # what is still to be ported, by ROADMAP.md queue 1 item
 _NOT_PORTED = {
-    "moe": "MoE (phi3.5-moe, deepseek-v2-lite)",
     "vlm": "the other model families (llama-3.2-vision, seamless-m4t)",
     "encdec": "the other model families (llama-3.2-vision, seamless-m4t)",
 }
@@ -44,7 +47,7 @@ _NOT_PORTED = {
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         what = _NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; "
@@ -74,8 +77,10 @@ def _attn_schema(cfg: ModelConfig, layers: int) -> dict:
 def schema(cfg: ModelConfig) -> dict:
     """The reference's parameter schema of a model the port runs, with
     each group's leaves stacked over a leading layer axis: ``blocks`` (a
-    dense or SSM model's layers; a hybrid model's G·k mamba2 layers), and
-    for a hybrid model ``trailing`` (its last n_layers − G·k mamba2
+    dense or SSM model's layers; a MoE model's MoE layers; a hybrid
+    model's G·k mamba2 layers), for a MoE model with leading dense layers
+    ``dense0`` (attention + an MLP of ``d_ff_first``) before ``blocks``,
+    and for a hybrid model ``trailing`` (its last n_layers − G·k mamba2
     layers) and ``shared`` (its one attention + MLP block, stacked over
     1)."""
     check_ported(cfg)
@@ -101,7 +106,16 @@ def schema(cfg: ModelConfig) -> dict:
         sch["shared"] = {**_attn_schema(cfg, 1), **mlp_schema(cfg, 1),
                          **_norms_schema(cfg, 1)}
     else:
-        sch["blocks"] = {**_attn_schema(cfg, L), **mlp_schema(cfg, L),
+        if cfg.family == "moe" and cfg.moe and cfg.moe.first_dense:
+            Ld = cfg.moe.first_dense
+            sch["dense0"] = {**_attn_schema(cfg, Ld),
+                             **mlp_schema(cfg, Ld,
+                                          d_ff=cfg.moe.d_ff_first or cfg.d_ff),
+                             **_norms_schema(cfg, Ld)}
+            L -= Ld
+        ffn = (moe_schema(cfg, L) if cfg.family == "moe" and cfg.moe
+               else mlp_schema(cfg, L))
+        sch["blocks"] = {**_attn_schema(cfg, L), **ffn,
                          **_norms_schema(cfg, L)}
     return sch
 
@@ -135,19 +149,27 @@ def _empty(shape, device, dtype) -> nn.Parameter:
 
 class DenseBlock(nn.Module):
     """One pre-norm layer: GQA or MLA attention (by ``cfg.attn_type``) and
-    the MLP, each with a residual.
+    the MLP, or, where the layer has a ``router``, the MoE FFN, each with a
+    residual.
 
     Its parameters carry the reference's names and orientation (``wq``,
     ``wk``, ``wv``, ``wo`` or MLA's ``w_dkv``, ``w_uk``, ``w_uv``, ``wo``
     and ``w_dq``, ``w_uq`` or ``wq``; ``w_up``, ``w_gate`` or None,
-    ``w_down``, ``ln1``, ``ln2``)."""
+    ``w_down``, ``ln1``, ``ln2``; a MoE layer's ``router``, expert-stacked
+    ``w_up``, ``w_gate``, ``w_down`` and ``shared_up``, ``shared_gate``,
+    ``shared_down`` or None)."""
+
+    # leaves that a layer may lack; absent, they are None
+    OPTIONAL = ("w_gate", "router", "shared_up", "shared_gate",
+                "shared_down")
 
     def __init__(self, shapes: dict, *, device, dtype):
         super().__init__()
         for name, shape in shapes.items():
             self.register_parameter(name, _empty(shape, device, dtype))
-        if "w_gate" not in shapes:
-            self.register_parameter("w_gate", None)
+        for name in self.OPTIONAL:
+            if name not in shapes:
+                self.register_parameter(name, None)
 
     def forward(self, h, cfg: ModelConfig, cos, sin, *, cache=None,
                 pos: int = 0, impl: str = "auto"):
@@ -159,7 +181,9 @@ class DenseBlock(nn.Module):
             a, kc = gqa_attention(self, x, cos, sin, n_heads=cfg.n_heads,
                                   cache=cache, cache_pos=pos, impl=impl)
         h = h + a
-        h = h + mlp(self, rmsnorm(h, self.ln2), cfg.act)
+        x = rmsnorm(h, self.ln2)
+        h = h + (mlp(self, x, cfg.act) if self.router is None
+                 else moe_ffn_local(self, x, cfg))
         return h, kc
 
 
@@ -188,8 +212,10 @@ class Transformer(nn.Module):
     """The decoder: token embedding, the blocks of the config's family,
     the final norm and the tied or untied unembedding.
 
-    ``blocks`` holds ``n_layers`` dense or mamba2 blocks; a hybrid model
-    holds its G·k mamba2 layers there, its trailing mamba2 layers in
+    ``blocks`` holds ``n_layers`` dense or mamba2 blocks; a MoE model
+    holds its leading dense layers in ``dense0`` (empty for every other
+    model) and its MoE layers in ``blocks``; a hybrid model holds its G·k
+    mamba2 layers there, its trailing mamba2 layers in
     ``trailing`` and **one** :class:`DenseBlock`, ``shared``, which it
     applies after every group of k mamba2 layers (one set of weights).
 
@@ -220,6 +246,7 @@ class Transformer(nn.Module):
                                  for _ in range(n))
 
         mamba = cfg.family in ("ssm", "hybrid")
+        self.dense0 = stack("dense0", DenseBlock)
         self.blocks = stack("blocks", MambaBlock if mamba else DenseBlock)
         if cfg.family == "hybrid":
             self.trailing = stack("trailing", MambaBlock)
@@ -265,7 +292,7 @@ class Transformer(nn.Module):
             for blk in self.trailing:
                 h, _ = blk(h, cfg, impl=impl)
             return self.logits(h)
-        for blk in self.blocks:
+        for blk in (*self.dense0, *self.blocks):
             h, _ = blk(h, cfg, cos, sin, impl=impl)
         return self.logits(h)
 

@@ -48,9 +48,11 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
     """One token for the whole batch at write position ``pos`` (an int;
     an SSM model's step does not depend on it).
 
-    A hybrid model runs group g's k mamba2 layers, then the shared block
-    with KV cache slot g, for each group, then its trailing layers.  The
-    caches are updated in place and returned."""
+    A MoE model runs its leading dense layers on ``caches["dense0"]``,
+    then its MoE layers on ``caches["blocks"]``, each MoE FFN on the
+    step's B tokens.  A hybrid model runs group g's k mamba2 layers, then
+    the shared block with KV cache slot g, for each group, then its
+    trailing layers.  The caches are updated in place and returned."""
     cfg = model.cfg
     B, S1 = tokens.shape
     h = model.embed(tokens)
@@ -74,7 +76,8 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
         if len(model.trailing):
             h = _mamba_layers(model.trailing, cfg, caches["trailing"], h)
         return model.logits(h), caches
-    for layer, blk in enumerate(model.blocks):
-        h, _ = blk(h, cfg, cos, sin, pos=pos,
-                   cache=_attn_cache(caches["blocks"], layer))
+    for group, blocks in (("dense0", model.dense0), ("blocks", model.blocks)):
+        for layer, blk in enumerate(blocks):
+            h, _ = blk(h, cfg, cos, sin, pos=pos,
+                       cache=_attn_cache(caches[group], layer))
     return model.logits(h), caches

@@ -13,7 +13,8 @@ shards from) are equal:
 
 :func:`cache_schema` covers every family (shape arithmetic only);
 :func:`init_cache` allocates the caches the port can decode with: the
-dense family (GQA or MLA), the SSM family and the hybrid family.
+dense and MoE families (GQA or MLA), the SSM family and the hybrid
+family.
 """
 from __future__ import annotations
 
@@ -98,7 +99,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     """Zeroed decode caches made on ``device``, in ``dtype`` except where
     the schema pins one: for a dense GQA model ``{"blocks": {"k", "v"}}``,
     each (L, B, Hkv, max_seq, Dh); for a dense MLA model ``{"blocks":
-    {"ckv"}}``, (L, B, max_seq, lora + rope); for an SSM model
+    {"ckv"}}``, (L, B, max_seq, lora + rope); a MoE model has the same
+    per layer, with its leading dense layers' in ``dense0`` (L =
+    ``first_dense``) and its MoE layers' in ``blocks``; for an SSM model
     ``{"blocks": {"conv", "state"}}``, the conv tail (L, B, d_conv - 1, C)
     and the state (L, B, H, P, N) always in float32 (``max_seq`` does not
     enter: the caches are O(1) in sequence length); for a hybrid model the

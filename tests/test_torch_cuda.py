@@ -20,7 +20,9 @@ the exact recurrence and to the chunked algorithm, and the models'
 forwards through the kernels to their forwards through the plain
 versions within 1e-4 (zamba2-7b and minicpm3-4b at full width with their
 depth cut, through the flash kernel at head dims 112 and 96 and the SSD
-kernel at d_state 64).  Two scenario presets, the placement service's
+kernel at d_state 64; reduced deepseek-v2-lite-16b and phi3.5-moe-42b
+with their own head dims, 192 and 128).  The MoE FFN on the card must
+route as on the CPU and agree with it within 1e-5.  Two scenario presets, the placement service's
 fast storm and four fat-tree replicas with their placements on the card
 must return what they return with their placements on the CPU, and every
 spelling of the card must give one shared default engine.
@@ -38,7 +40,8 @@ from repro_torch.core.engine import (PlacementEngine,  # noqa: E402
                                      PlacementRequest)
 from repro_torch.core.fattree import FatTreeTopology  # noqa: E402
 from repro_torch.core.topology import TorusTopology  # noqa: E402
-from repro_torch.kernels import LAUNCHES, reset_launches  # noqa: E402
+from repro_torch.kernels import (LAUNCHES, SHAPES,  # noqa: E402
+                                 reset_launches)
 from repro_torch.kernels.hop_dist import ops as hop_ops  # noqa: E402
 from repro_torch.kernels.hop_dist.ref import (  # noqa: E402
     fattree_hop_pairs_ref, torus_hop_pairs_ref)
@@ -235,11 +238,15 @@ def test_flash_kernel_model_head_dims_match_plain(cuda_device, B, H, Hkv,
 
 
 # reduced copies of the model shapes the float32 kernel runs: smollm-135m's
-# Dh 64 (9 heads over 3), minicpm3-4b's 96 and zamba2-7b's 112, B 1 x 512
+# Dh 64 (9 heads over 3), minicpm3-4b's 96 and zamba2-7b's 112, B 1 x 512;
+# phi3.5-moe-42b's 128 (4 heads a KV head) and deepseek-v2-lite-16b's 192
+# (MLA with V padded), B 1 x 256
 F64_SHAPES = [
     (1, 9, 3, 512, 512, 64),
     (1, 8, 8, 512, 512, 96),
     (1, 8, 8, 512, 512, 112),
+    (1, 8, 2, 256, 256, 128),
+    (1, 4, 4, 256, 256, 192),
 ]
 
 
@@ -502,6 +509,71 @@ def test_cut_depth_forward_kernels_match_plain(cuda_device, arch, layers,
         want = model(toks, impl="ref")
     assert launched == launches
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_moe_ffn_local_on_card_matches_cpu(cuda_device):
+    """The MoE FFN (64 experts top-6 plus 2 shared, d_model 256, experts
+    of 128) on the card against the same layer on the CPU: the same
+    routes, outputs within 1e-5."""
+    from repro_torch.models import moe
+    cfg = reduced(get_arch("deepseek-v2-lite-16b"), d_model=256)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=64, top_k=6, n_shared=2, d_ff_expert=128))
+    sch = moe.moe_schema(cfg, 1)
+    g = torch.Generator().manual_seed(7)
+    blocks = {}
+    for dev in ("cpu", cuda_device):
+        blocks[str(dev)] = M.DenseBlock({k: d.shape[1:] for k, d in
+                                         sch.items()}, device=dev,
+                                        dtype=torch.float32)
+    with torch.no_grad():
+        for name, d in sch.items():
+            w = torch.randn(d.shape[1:], generator=g) * d.scale
+            for blk in blocks.values():
+                getattr(blk, name).copy_(w)
+    x = torch.randn((2, 300, cfg.d_model), generator=g)
+    with torch.inference_mode():
+        want = moe.moe_ffn_local(blocks["cpu"], x, cfg)
+        got = moe.moe_ffn_local(blocks[str(cuda_device)], x.to(cuda_device),
+                                cfg)
+        ids_cpu = moe.route(x.reshape(-1, cfg.d_model)
+                            @ blocks["cpu"].router, 6)[1]
+        ids_card = moe.route(x.to(cuda_device).reshape(-1, cfg.d_model)
+                             @ blocks[str(cuda_device)].router, 6)[1]
+    assert torch.equal(ids_card.sort(-1).values.cpu(),
+                       ids_cpu.sort(-1).values)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch,over,Dh", [
+    ("deepseek-v2-lite-16b", dict(n_heads=4), 192),
+    ("phi3.5-moe-42b", dict(n_heads=8, n_kv_heads=2, head_dim=128), 128),
+])
+def test_moe_forward_kernel_matches_plain(cuda_device, arch, over, Dh):
+    """Reduced MoE models with their own attention head dims, B 1 x 2048
+    (the flash branch): deepseek-v2-lite's MLA (qk 128 + 64, V padded from
+    128 to 192) through the float32 Dh 192 instance, phi3.5-moe's GQA
+    through the Dh 128 one; held to the plain version's forward."""
+    cfg = reduced(get_arch(arch), **over)
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=get_arch(arch).mla)
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    reset_launches()
+    with torch.inference_mode():
+        got = model(toks, impl="kernel")
+        launched, shape = LAUNCHES["flash_attention"], SHAPES[
+            "flash_attention"]
+        want = model(toks, impl="ref")
+    assert launched == cfg.n_layers and shape[-1] == Dh
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "phi3.5-moe-42b"])
+def test_moe_serve_main_on_card(cuda_device, capsys, arch):
+    assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4"]) == 0
+    assert capsys.readouterr().out.count("\n") == 3
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "minicpm3-4b"])
