@@ -70,6 +70,25 @@ toolkit.  The script
    and the serve driver; then phi3.5-moe-42b cut to ``PHI35_DEPTH``
    layers, its forward and 8 decode steps held the same way (no serve
    driver: it would build all 32 layers);
+7c. runs the cross-attention families at full width after holding
+   ``flash_attention`` at seamless-m4t-large-v2's decoder shape (16 heads
+   of 64; llama-3.2-vision-11b's self layers run phi3.5's Dh 128 shape),
+   each fed seeded source embeddings (``seeded_source``: the reference's
+   zero stubs would make every cross-attention add nothing):
+   llama-3.2-vision-11b cut to 5 layers (one group of 4 self layers and
+   a cross layer over 1600 vision tokens) on NumPy-seeded weights, B 1 x
+   2048, held to ``EXPECTED_VLM``; 10 layers (``VLM_HELD_DEPTH``), B 2 x
+   2048, held to its plain-version forward within 1e-4 with 8 decode
+   steps; all 40 layers (9.77 B parameters, 39.1 GB, drawn on the card:
+   32 flash launches, none for the cross layers) and 8 decode steps held
+   by the noise-floor rule (``floor_verdict``: within 1e-4 is below
+   float32's own noise at that depth), and the serve driver;
+   seamless-m4t-large-v2 cut to 2 + 2 layers over 2048 seeded frames,
+   held to ``EXPECTED_SEAMLESS``; all 24 + 24 layers, B 2 x 2048 over
+   2048 frames (24 flash launches, the encoder's and the
+   cross-attention's plain), held to its plain-version forward, 8 decode
+   steps on the cross cache ``encode`` and ``prefill_cross_cache``
+   build, and the serve driver;
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -95,8 +114,8 @@ toolkit.  The script
    the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
    guest must launch ``swap_select``.
 
-Steps 5 to 7b run between steps 2 and 3; ``ssd_scan`` and the new shapes
-of steps 7a and 7b are checked with the other model kernels in step 5.  Each phase
+Steps 5 to 7c run between steps 2 and 3; ``ssd_scan`` and the new shapes
+of steps 7a to 7c are checked with the other model kernels in step 5.  Each phase
 prints one JSON line.  Then come the kernel summary line, the card's name
 and power limit, and, only when every phase passed, the final
 ``{"ok": true, ...}`` line.  Any failure exits non-zero without it.  The
@@ -313,6 +332,52 @@ EXPECTED_DSV2 = [
     [95756, 369.65182813233696, 0.42598867416381836, 290.85648175541644],
     [50262, -84.17194872675464, 0.16052865982055664, 289.12154153873934],
 ]
+
+# The cut-depth llama-3.2-vision-11b forward (5 layers: one group of 4
+# self-attention layers and its cross layer; full width; B 1 x 2048
+# tokens: the flash branch, and the cross layer's plain attention to 1600
+# seeded vision embeddings) is held to the reference package at these.
+VLM_HELD_POSITIONS = (0, 1023, 2047)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(llama-3.2-vision-11b with n_layers=5, seed=0),
+# SyntheticDataset(128256, 2048, 1, seed=0).batch(0) and
+# seeded_source((1, 1600, 4096), seed=0) at VLM_HELD_POSITIONS.
+# Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_vlm.py -k expected_vlm
+EXPECTED_VLM = [
+    [110426, -170.73093337286264, 0.7487006187438965, 459.1299728463319],
+    [42887, -106.39505392784486, 0.09175395965576172, 459.2434031340946],
+    [98372, -164.99776898720302, 0.11436986923217773, 458.5914367972209],
+]
+# The cut-depth seamless-m4t-large-v2 forward (2 encoder + 2 decoder
+# layers, full width, B 1 x 2048 tokens over 2048 seeded source frames:
+# the decoder's self-attention through the flash branch, the encoder's
+# and the cross-attention plain) is held at these.
+SEAMLESS_HELD_POSITIONS = (0, 1023, 2047)
+# forward_summary of the reference package's forward (CPU, float32) on
+# interop.seeded_params(seamless-m4t-large-v2 with n_enc_layers=2,
+# n_layers=2, seed=0), SyntheticDataset(256206, 2048, 1, seed=0).batch(0)
+# and seeded_source((1, 2048, 1024), seed=0) at SEAMLESS_HELD_POSITIONS.
+# Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_encdec.py -k expected_seamless
+EXPECTED_SEAMLESS = [
+    [166383, -76.17551796883345, 0.0017790794372558594, 324.68329781652074],
+    [25330, 162.9665769515559, 0.04574751853942871, 323.4718411841582],
+    [39915, 375.71638720016927, 0.00023746490478515625, 323.63932222569224],
+]
+
+
+def seeded_source(shape: tuple, seed: int = 0):
+    """Source embeddings (a VLM's vision embeddings, an encoder-decoder
+    model's frames) of ``shape``: float32 standard normals from
+    ``default_rng([seed, 1])``, a stream apart from the weights'
+    ``default_rng(seed)``.  The reference's stubs are zeros, under which
+    every cross-attention adds nothing; the model cells feed these."""
+    import numpy as np
+    return np.random.default_rng([seed, 1]).standard_normal(
+        shape, dtype=np.float32)
 
 
 KERNELS = {
@@ -1288,6 +1353,9 @@ FLASH_MINICPM3 = (2, 40, 40, 2048, 2048, 96)
 # from 128 to 192) at B 2 x 2048
 FLASH_PHI35 = (2, 32, 8, 2048, 2048, 128)
 FLASH_DSV2 = (2, 16, 16, 2048, 2048, 192)
+# seamless-m4t-large-v2's decoder self-attention (16 heads of 64) at B 2 x
+# 2048; llama-3.2-vision-11b's self layers run phi3.5's shape above
+FLASH_SEAMLESS = (2, 16, 16, 2048, 2048, 64)
 # phi3.5-moe-42b's depth on one card.  The whole model (32 layers of
 # 1.300 B parameters, 167.5 GB in float32) needs several cards; 12 layers
 # (63.5 GB) fit one.  But at its full width float32 rounding compounds
@@ -1543,7 +1611,7 @@ def model_kernel_phase(dev) -> dict:
     recs = {name: {} for name in ("flash_attention", "rmsnorm",
                                   "swap_gain", "ssd_scan")}
     for shape in (FLASH_MAIN, FLASH_ZAMBA2, FLASH_MINICPM3, FLASH_PHI35,
-                  FLASH_DSV2):
+                  FLASH_DSV2, FLASH_SEAMLESS):
         for dt in ("float32", "bfloat16"):
             rec = check_flash(dev, dt, shape, "kernels/model",
                               f64=dt == "float32")
@@ -1738,21 +1806,75 @@ def routing_verdict(got_routes, want_routes, got, want,
                    and all(f["gap_rel"] <= MOE_NEAR_TIE for f in roots))}
 
 
-def run_forward(model, toks, launches: dict, key: str):
-    """The forward of ``model`` on ``toks`` cold, warm, once more under
-    the profiler, and through the plain versions (``impl="ref"``), held
-    within 1e-4 of each other.  ``launches`` maps each kernel the forward
-    must go through to its launches per forward; the counts are zeroed
-    just before the cold forward and read just after it.
+# The 1e-4 hold of a forward against its plain-version forward is below
+# float32's own noise at llama-3.2-vision-11b's full depth: two plain
+# forwards that differ only in the flash plain version's blocking reach
+# 0.45 / 0.64 / 0.80 / 0.91 / 1.12 / 1.29 of the allclose allowance at 5 /
+# 10 / 15 / 20 / 30 / 40 layers (tools/forward_drift.py).  So the VLM is
+# held to the 1e-4 rule at VLM_HELD_DEPTH layers, the deepest where that
+# noise stays under two thirds of the allowance (as PHI35_DEPTH), and its
+# 40-layer forward and decode steps by the noise-floor rule
+# (``floor_verdict``; the decode steps against the floor the forward
+# measured: their logits reach 1.5e-4 of the forward's at 40 layers).
+VLM_HELD_DEPTH = 10
+# the noise-floor rule's factor: the kernel forward may be at most this
+# many times as far from the plain forward as the reblocked plain forward
+# is (the f32 flash kernel's own rule against the float64 plain version)
+FLOOR_FACTOR = 2.0
+
+
+def reblocked_flash(q, k, v, causal=True, impl="auto"):
+    """The flash plain version summed in another order: query blocks of
+    256 and key blocks of 512 instead of 512 and 1024."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    return flash_attention_ref(q, k, v, causal=causal, q_block=256,
+                               kv_block=512)
+
+
+def allowance_ratio(got, want) -> float:
+    """The largest ratio of a logit's difference to the allclose(atol =
+    rtol = 1e-4) allowance there: at most 1 is the 1e-4 hold."""
+    return float(((got - want).abs() / (1e-4 + 1e-4 * want.abs())).max())
+
+
+def floor_verdict(got, want, floor: float) -> dict:
+    """The noise-floor rule of logits too deep for the 1e-4 hold: ``got``
+    may be at most ``FLOOR_FACTOR`` times ``floor`` from ``want`` in
+    ``allowance_ratio``, where ``floor`` is how far the plain versions'
+    forward summed in another order (``reblocked_flash``) is from the
+    plain forward; and its argmax ids must equal ``want``'s wherever
+    ``want``'s top-2 gap exceeds 1e-3."""
+    import torch
+    ratio = allowance_ratio(got, want)
+    top2 = torch.topk(want, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3
+    ids_ok = bool((got.argmax(-1) == want.argmax(-1))[clear].all())
+    return {"ratio_to_allowance": ratio, "floor_ratio": floor,
+            "factor": FLOOR_FACTOR, "argmax_ok": ids_ok,
+            "ok": ratio <= FLOOR_FACTOR * floor and ids_ok}
+
+
+def run_forward(model, toks, launches: dict, key: str,
+                source: dict | None = None, floor: bool = False):
+    """The forward of ``model`` on ``toks`` (and ``source``, a VLM's
+    ``vision_embed`` or an encoder-decoder model's ``enc_embed``) cold,
+    warm, once more under the profiler, and through the plain versions
+    (``impl="ref"``), held within 1e-4 of each other.  ``launches`` maps
+    each kernel the forward must go through to its launches per forward;
+    the counts are zeroed just before the cold forward and read just
+    after it.
 
     A MoE model's cold and plain forwards record their routes, the cold
     forward counts its host syncs, and the two forwards are held to each
-    other by ``routing_verdict``.  Returns (logits, record, the cold
+    other by ``routing_verdict``.  With ``floor`` the plain versions run
+    once more with ``reblocked_flash`` and the forwards are held by
+    ``floor_verdict`` instead of the 1e-4 rule.  Returns (logits, record, the cold
     forward's routes by position or None)."""
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
 
     names = tuple(launches)
+    source, extra = source or {}, {}
     moe = model.cfg.family == "moe"
     got_routes, want_routes, syncs = [], [], []
 
@@ -1769,24 +1891,31 @@ def run_forward(model, toks, launches: dict, key: str):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with recording(got_routes):
-            logits = model(toks)
+            logits = model(toks, **source)
             torch.cuda.synchronize()
         cold = time.perf_counter() - t0
         got = _count_path(names)
         peak = torch.cuda.max_memory_allocated()
         n_syncs = len(syncs)
         t0 = time.perf_counter()
-        model(toks)
+        model(toks, **source)
         torch.cuda.synchronize()
         warm = time.perf_counter() - t0
-        prof = profiled(lambda: model(toks), key,
+        prof = profiled(lambda: model(toks, **source), key,
                         spans=moe_spans() if moe else ())
         total = {name: LAUNCHES[name] for name in names}
         with recording(want_routes):
-            plain = model(toks, impl="ref")
+            plain = model(toks, impl="ref", **source)
             torch.cuda.synchronize()
+        if floor:
+            from repro_torch.models import layers
+            with patched(layers, "flash_attention",
+                         lambda f: reblocked_flash):
+                extra["noise_floor"] = floor_verdict(
+                    logits, plain, allowance_ratio(
+                        model(toks, impl="ref", **source), plain))
     err = float((logits - plain).abs().max())
-    routes, extra = None, {}
+    routes = None
     if moe:
         routes = by_position(got_routes, toks.shape[0])
         extra["routing"] = routing_verdict(
@@ -1794,11 +1923,16 @@ def run_forward(model, toks, launches: dict, key: str):
             model.cfg.moe.first_dense)
         extra["host_syncs_per_forward"] = n_syncs
         plain_ok = extra["routing"]["ok"]
+    elif floor:
+        plain_ok = extra["noise_floor"]["ok"]
     else:
         plain_ok = bool(torch.allclose(logits, plain, atol=1e-4, rtol=1e-4))
     del plain, want_routes
     B, S = toks.shape
     n = model.cfg.n_layers
+    extra.update({f"{k}_len": v.shape[1] for k, v in source.items()})
+    if model.cfg.family == "encdec":
+        extra["enc_layers"] = model.cfg.n_enc_layers
     rec = {"phase": key, "dtype": str(logits.dtype).replace("torch.", ""),
            "batch": B, "seq": S, "layers": n, "cold_s": cold,
            "warm_s": warm, "prefill_tok_per_s": B * S / warm,
@@ -1858,10 +1992,12 @@ def model_phase(dev):
 
 def per_forward_launches(cfg, S: int) -> dict:
     """The kernel launches one forward of ``cfg`` on S tokens makes: one
-    ``ssd_scan`` per mamba2 layer, one ``flash_attention`` per attention
-    application when S reaches the flash branch (``FLASH_MIN_SEQ``)."""
+    ``ssd_scan`` per mamba2 layer, one ``flash_attention`` per causal
+    self-attention application when S reaches the flash branch
+    (``FLASH_MIN_SEQ``): a VLM's G·k self layers, not its cross layers;
+    an encoder-decoder model's decoder layers, not its encoder's."""
     from repro_torch.models.layers import FLASH_MIN_SEQ
-    from repro_torch.models.model import _hybrid_split
+    from repro_torch.models.model import _hybrid_split, _vlm_split
 
     if cfg.family == "ssm":
         return {"ssd_scan": cfg.n_layers}
@@ -1871,17 +2007,45 @@ def per_forward_launches(cfg, S: int) -> dict:
         G, k, trail = _hybrid_split(cfg)
         out["ssd_scan"] = G * k + trail
         attn = G
+    if cfg.family == "vlm":
+        G, k = _vlm_split(cfg)
+        attn = G * k
     if S >= FLASH_MIN_SEQ:
         out["flash_attention"] = attn
     return out
 
 
-def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
+def source_inputs(cfg, B: int, S: int, dev) -> dict:
+    """A VLM's ``vision_embed`` (B, n_vision_tokens, d_model) or an
+    encoder-decoder model's ``enc_embed`` (B, n_audio_frames or S,
+    d_model, as the reference's stubs are sized), drawn by
+    ``seeded_source(seed=0)`` and put on ``dev``; {} for other models."""
+    import torch
+    if cfg.family == "vlm":
+        key, n = "vision_embed", cfg.n_vision_tokens
+    elif cfg.family == "encdec":
+        key, n = "enc_embed", cfg.n_audio_frames or S
+    else:
+        return {}
+    return {key: torch.from_numpy(seeded_source((B, n, cfg.d_model)))
+            .to(dev)}
+
+
+def _depth_tag(over: dict) -> str:
+    """``L<n_layers>``, with ``-E<n_enc_layers>`` where the cut sets it."""
+    tag = f"L{over['n_layers']}"
+    return tag + (f"-E{over['n_enc_layers']}" if "n_enc_layers" in over
+                  else "")
+
+
+def cut_depth_phase(dev, arch: str, over: dict, B: int, S: int,
                     positions, expected) -> None:
-    """``arch`` at full width with its depth cut to ``layers``, float32,
-    NumPy-seeded weights (``interop.seeded_params(seed=0)``): a B x S
-    forward on ``SyntheticDataset(seed=0)`` tokens through the kernels,
-    held to the reference's logits ``expected`` at ``positions``."""
+    """``arch`` at full width with its depth cut as ``over`` says
+    (``n_layers``, and an encoder-decoder model's ``n_enc_layers``),
+    float32, NumPy-seeded weights (``interop.seeded_params(seed=0)``): a
+    B x S forward on ``SyntheticDataset(seed=0)`` tokens (and seeded
+    source embeddings, ``source_inputs``) through the kernels, held to
+    the reference's logits ``expected`` at ``positions``."""
     import dataclasses
     import torch
     from repro_torch import interop
@@ -1889,19 +2053,20 @@ def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
     from repro_torch.kernels import reset_launches
     from repro_torch.train.data import SyntheticDataset
 
-    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    cfg = dataclasses.replace(get_arch(arch), **over)
     t0 = time.perf_counter()
     model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
                                  device=dev)
     toks = SyntheticDataset(cfg.vocab, S, B, seed=0).batch(0)["tokens"]
     toks = toks.to(dev)
+    source = source_inputs(cfg, B, S, dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     want = per_forward_launches(cfg, S)
     with torch.inference_mode():
         reset_launches()
         t0 = time.perf_counter()
-        logits = model(toks)
+        logits = model(toks, **source)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _count_path(("ssd_scan", "flash_attention"))
@@ -1909,8 +2074,8 @@ def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
     ok = (launches == {k: want.get(k, 0) for k in launches}
           and rec["reference_ok"] and bool(torch.isfinite(logits).all())
           and tuple(logits.shape) == (B, S, cfg.vocab))
-    emit({"phase": f"model/{arch}/forward-{S}-L{layers}",
-          "dtype": "float32", "batch": B, "seq": S, "layers": layers,
+    emit({"phase": f"model/{arch}/forward-{S}-{_depth_tag(over)}",
+          "dtype": "float32", "batch": B, "seq": S, **over,
           "load_s": load_s, "cold_s": wall, "launches": launches, **rec,
           "ok": ok})
     if not ok:
@@ -1918,13 +2083,15 @@ def cut_depth_phase(dev, arch: str, layers: int, B: int, S: int,
                              f"checks")
 
 
-def full_depth_phase(dev, arch: str, depth: int | None = None):
+def full_depth_phase(dev, arch: str, depth: int | None = None,
+                     floor: bool = False):
     """``arch`` at full width and depth (or its depth cut to ``depth``
     layers), float32, weights drawn on the card from seed 0: the B 2 x
     2048 forward through the kernels (``run_forward``), held to the plain
-    versions' forward.  Returns (model, tokens, logits of the first 8
-    positions, a MoE model's routes there or None) for the decode
-    phase."""
+    versions' forward (by ``floor_verdict`` with ``floor``).  Returns (model, tokens, logits of the first 8
+    positions, a MoE model's routes there or None, the source inputs, and
+    with ``floor`` the reblocked plain forward's ``allowance_ratio``) for
+    the decode phase."""
     import dataclasses
     import torch
     from repro_torch.configs.registry import get_arch
@@ -1938,52 +2105,101 @@ def full_depth_phase(dev, arch: str, depth: int | None = None):
     model = M.init(cfg, seed=0, device=dev)
     toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)["tokens"]
     toks = toks.to(dev)
+    source = source_inputs(cfg, 2, 2048, dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     logits, rec, routes = run_forward(
         model, toks, per_forward_launches(cfg, 2048),
-        f"model/{arch}/forward-2048" + (f"-L{depth}" if depth else ""))
+        f"model/{arch}/forward-2048" + (f"-L{depth}" if depth else ""),
+        source, floor)
     rec["load_s"] = load_s
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"the {arch} forward failed its checks")
     if routes is not None:
         routes = [tuple(t[:, :8].clone() for t in c) for c in routes]
-    return model, toks, logits[:, :8].clone(), routes
+    floor_ratio = rec["noise_floor"]["floor_ratio"] if floor else None
+    return model, toks, logits[:, :8].clone(), routes, source, floor_ratio
 
 
 def model_family_phase(dev, arch: str, cut: tuple | None = None,
-                       depth: int | None = None, serve: bool = True) -> None:
-    """The cut-depth forward held to the reference (``cut``: layers, B, S,
-    held positions, expected summary; None skips it), then the forward at
-    full depth (or at ``depth`` layers), 8 decode steps held to it and,
-    with ``serve``, the serve driver; each model is freed before the
-    next."""
+                       depth: int | None = None, serve: bool = True,
+                       held_depth: int | None = None) -> None:
+    """The cut-depth forward held to the reference (``cut``: the depth
+    overrides, B, S, held positions, expected summary; None skips it),
+    with ``held_depth`` a forward at that depth and 8 decode steps held to
+    its plain-version forward within 1e-4, then the forward at full depth
+    (or at ``depth`` layers), 8 decode steps held to it (both by the
+    noise-floor rule when ``held_depth`` is given) and, with ``serve``,
+    the serve driver; each model is freed before the next."""
     import torch
     if cut is not None:
         cut_depth_phase(dev, arch, *cut)
         torch.cuda.empty_cache()
-    model, toks, fwd_logits, fwd_routes = full_depth_phase(dev, arch, depth)
-    decode_phase(model, toks, fwd_logits, fwd_routes)
-    del model, toks, fwd_logits, fwd_routes
+    if held_depth is not None:
+        model, toks, fwd_logits, _, source, _ = full_depth_phase(
+            dev, arch, held_depth)
+        decode_phase(model, toks, fwd_logits, source=source,
+                     tag=f"-L{held_depth}")
+        del model, toks, fwd_logits, source
+        torch.cuda.empty_cache()
+    model, toks, fwd_logits, fwd_routes, source, floor = full_depth_phase(
+        dev, arch, depth, floor=held_depth is not None)
+    decode_phase(model, toks, fwd_logits, fwd_routes, source=source,
+                 floor=floor)
+    del model, toks, fwd_logits, fwd_routes, source
     torch.cuda.empty_cache()
     if serve:
         serve_phase(arch)
 
 
+def cross_cache(model, source: dict):
+    """A VLM's or an encoder-decoder model's frozen cross cache from its
+    source inputs (after ``encode`` for the latter), as the serve driver
+    builds it; None for other models."""
+    from repro_torch.serve.decode import encode, prefill_cross_cache
+    if "vision_embed" in source:
+        return prefill_cross_cache(model, source["vision_embed"])
+    if "enc_embed" in source:
+        return prefill_cross_cache(model, encode(model, source["enc_embed"]),
+                                   which="decoder")
+    return None
+
+
 def decode_phase(model, toks, fwd_logits, fwd_routes=None,
-                 steps: int = 8) -> None:
-    """``steps`` decode steps from empty caches, each held to the
-    forward's logits at the same position (atol = rtol = 1e-4; a MoE
-    model's by ``routing_verdict`` against the forward's routes
-    ``fwd_routes``); then the same steps again, timed without the checks,
-    and once more under the profiler."""
+                 steps: int = 8, source: dict | None = None,
+                 floor: float | None = None, tag: str = "") -> None:
+    """``steps`` decode steps from empty caches (a VLM's or an
+    encoder-decoder model's cross cache built once from ``source``, the
+    forward's source inputs, and timed apart), each held to the forward's
+    logits at the same position (atol = rtol = 1e-4; a MoE model's by
+    ``routing_verdict`` against the forward's routes ``fwd_routes``; with
+    ``floor``, the reblocked plain forward's ``allowance_ratio``, by
+    ``floor_verdict``); then the same steps
+    again from empty self caches, timed without the checks, and once more
+    under the profiler.  ``tag`` ends the phase's key."""
     import torch
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.kvcache import init_cache
 
     B = toks.shape[0]
-    caches = init_cache(model.cfg, B, steps, device=model.device)
+    source = source or {}
+    src_len = (source["enc_embed"].shape[1] if "enc_embed" in source
+               else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cross = cross_cache(model, source)
+    torch.cuda.synchronize()
+    cross_s = time.perf_counter() - t0
+
+    def empty_caches():
+        c = init_cache(model.cfg, B, steps, device=model.device,
+                       src_len=src_len)
+        if cross is not None:
+            c["cross"] = cross
+        return c
+
+    caches = empty_caches()
     calls, outs = [], []
     with (recording_routes(calls) if fwd_routes is not None
           else contextlib.nullcontext()):
@@ -1992,7 +2208,10 @@ def decode_phase(model, toks, fwd_logits, fwd_routes=None,
             outs.append(got[:, 0])
     got, want = torch.stack(outs, dim=1), fwd_logits[:, :steps]
     err, extra = float((got - want).abs().max()), {}
-    if fwd_routes is None:
+    if floor is not None:
+        extra["noise_floor"] = floor_verdict(got, want, floor)
+        ok = extra["noise_floor"]["ok"]
+    elif fwd_routes is None:
         ok = bool(torch.allclose(got, want, atol=1e-4, rtol=1e-4))
     else:
         extra["routing"] = routing_verdict(
@@ -2002,7 +2221,7 @@ def decode_phase(model, toks, fwd_logits, fwd_routes=None,
         ok = extra["routing"]["ok"]
 
     def run():
-        c = init_cache(model.cfg, B, steps, device=model.device)
+        c = empty_caches()
         for t in range(steps):
             decode_step(model, c, toks[:, t:t + 1], t)
 
@@ -2011,7 +2230,9 @@ def decode_phase(model, toks, fwd_logits, fwd_routes=None,
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    key = f"model/{model.cfg.name}/decode-{steps}"
+    key = f"model/{model.cfg.name}/decode-{steps}{tag}"
+    if cross is not None:
+        extra["cross_cache_s"] = cross_s
     emit({"phase": key, "batch": B, "steps": steps, "s": wall,
           "ms_per_step": wall / steps * 1e3, **profiled(run, key),
           "max_abs_err_vs_forward": err, **extra, "ok": ok})
@@ -2112,17 +2333,27 @@ def main() -> int:
         failed.append("model")
     torch.cuda.empty_cache()
     for arch, kw in (
-            ("mamba2-2.7b", dict(cut=(2, 2, 256, MAMBA2_HELD_POSITIONS,
+            ("mamba2-2.7b", dict(cut=(dict(n_layers=2), 2, 256,
+                                      MAMBA2_HELD_POSITIONS,
                                       EXPECTED_MAMBA2))),
-            ("zamba2-7b", dict(cut=(7, 2, 256, ZAMBA2_HELD_POSITIONS,
+            ("zamba2-7b", dict(cut=(dict(n_layers=7), 2, 256,
+                                    ZAMBA2_HELD_POSITIONS,
                                     EXPECTED_ZAMBA2))),
-            ("minicpm3-4b", dict(cut=(2, 1, 2048, MINICPM3_HELD_POSITIONS,
+            ("minicpm3-4b", dict(cut=(dict(n_layers=2), 1, 2048,
+                                      MINICPM3_HELD_POSITIONS,
                                       EXPECTED_MINICPM3))),
-            ("deepseek-v2-lite-16b", dict(cut=(2, 1, 2048,
+            ("deepseek-v2-lite-16b", dict(cut=(dict(n_layers=2), 1, 2048,
                                                DSV2_HELD_POSITIONS,
                                                EXPECTED_DSV2))),
             # no serve step: the driver would build all 32 layers
-            ("phi3.5-moe-42b", dict(depth=PHI35_DEPTH, serve=False))):
+            ("phi3.5-moe-42b", dict(depth=PHI35_DEPTH, serve=False)),
+            ("llama-3.2-vision-11b", dict(cut=(dict(n_layers=5), 1, 2048,
+                                               VLM_HELD_POSITIONS,
+                                               EXPECTED_VLM),
+                                          held_depth=VLM_HELD_DEPTH)),
+            ("seamless-m4t-large-v2", dict(cut=(
+                dict(n_enc_layers=2, n_layers=2), 1, 2048,
+                SEAMLESS_HELD_POSITIONS, EXPECTED_SEAMLESS)))):
         t0 = time.perf_counter()
         try:
             model_family_phase(dev, arch, **kw)

@@ -22,7 +22,8 @@ from .core.engine import PlacementRequest
 from .core.fattree import FatTreeTopology
 from .core.state import ClusterState
 from .core.topology import TorusTopology
-from .models.model import Transformer, param_leaves, schema
+from .models.model import (Transformer, leaf_paths, param_leaves,
+                           schema)
 
 
 def comm_graph(G_v: np.ndarray, G_m: Optional[np.ndarray] = None
@@ -88,10 +89,12 @@ def model_params(cfg, params_np: dict, *, device="cuda",
     ``params_np`` is the reference's nested parameter dict as NumPy
     arrays, for example ``jax.tree.map(np.asarray, repro.models.model.
     init(cfg, key))``, with each group's leaves stacked over a leading
-    layer axis; layer ``l`` of ``blocks`` (or ``trailing``) gets slice
-    ``[l]`` of each, a hybrid model's ``shared`` block slice ``[0]``.
-    Every leaf of the schema must be there at its shape, and nothing
-    else.  The tensors are made on ``device`` in ``dtype``."""
+    layer axis, nested groups at any depth (an encoder-decoder model's
+    ``decoder/self/wq``); layer ``l`` of a group gets slice ``[l]`` of
+    each of its leaves, a hybrid model's ``shared`` block slice ``[0]``.
+    Every leaf of the schema must be there at its shape (else
+    ``ValueError``), and nothing else (else ``KeyError``).  The tensors
+    are made on ``device`` in ``dtype``."""
     model = Transformer(cfg, device=device, dtype=dtype)
     params = dict(model.named_parameters())
     seen = set()
@@ -107,10 +110,8 @@ def model_params(cfg, params_np: dict, *, device="cuda",
             seen.add(path)
             params[name].copy_(torch.tensor(
                 arr if layer is None else arr[layer]))
-    given = set()
-    for k, v in params_np.items():
-        given |= {(k, kk) for kk in v} if isinstance(v, dict) else {(k,)}
-    extra = sorted("/".join(p) for p in given - seen)
+    extra = sorted("/".join(p) for p, _ in leaf_paths(params_np)
+                   if p not in seen)
     if extra:
         raise KeyError(f"parameters the port does not know: {extra}")
     return model
@@ -121,10 +122,11 @@ def seeded_params(cfg, seed: int = 0) -> dict:
     reference's layout (nested dict, each group stacked over its layers),
     float32.
 
-    Each schema leaf in the schema's order (each group's leaves in their
-    own order, where the group stands among the top-level keys) is ones,
-    zeros, or
-    ``default_rng(seed)`` standard normals times its scale.  Both packages
+    Each schema leaf in the schema's order, depth first (each group's
+    leaves in their own order, where the group stands among its
+    siblings; an encoder-decoder model's ``decoder/self`` leaves before
+    ``decoder/cross``) is ones, zeros, or ``default_rng(seed)`` standard
+    normals times its scale.  Both packages
     can run the same weights from it: the reference takes the dict as it
     is, the port through :func:`model_params`."""
     rng = np.random.default_rng(seed)
@@ -137,6 +139,8 @@ def seeded_params(cfg, seed: int = 0) -> dict:
         return rng.standard_normal(d.shape, dtype=np.float32) \
             * np.float32(d.scale)
 
-    return {k: ({kk: draw(dd) for kk, dd in d.items()}
-                if isinstance(d, dict) else draw(d))
-            for k, d in schema(cfg).items()}
+    def tree(t: dict) -> dict:
+        return {k: tree(d) if isinstance(d, dict) else draw(d)
+                for k, d in t.items()}
+
+    return tree(schema(cfg))

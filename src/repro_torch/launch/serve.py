@@ -3,13 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
         --batch 4 --prompt-len 32 --gen 16 [--reduced] [--device cpu]
 
-``--arch`` takes the dense GQA models, minicpm3-4b (MLA), the MoE models
-(deepseek-v2-lite-16b; phi3.5-moe-42b, whose 167.5 GB of float32 weights
-fit one card only with ``--reduced``), mamba2-2.7b and zamba2-7b
-(hybrid); VLM and encoder-decoder archs raise ``NotImplementedError``.
-The driver prefills token by token through the decode step, as the reference's
-driver does, then decodes greedily, under ``torch.inference_mode()``.
-The weights are random, drawn from ``--seed`` on the target device.
+``--arch`` takes every registered model: the dense GQA models,
+minicpm3-4b (MLA), the MoE models (deepseek-v2-lite-16b; phi3.5-moe-42b,
+whose 167.5 GB of float32 weights fit one card only with ``--reduced``),
+mamba2-2.7b, zamba2-7b (hybrid), llama-3.2-vision-11b (VLM) and
+seamless-m4t-large-v2 (encoder-decoder).  A VLM's frozen cross cache is
+built from the vision embeddings, an encoder-decoder model's from the
+encoder's output over the source frames; both inputs are the reference's
+stubs, zeros (``train.data.extra_inputs``).  The driver then prefills
+token by token through the decode step, as the reference's driver does,
+and decodes greedily, under ``torch.inference_mode()``.  The weights are
+random, drawn from ``--seed`` on the target device.
 """
 from __future__ import annotations
 
@@ -22,9 +26,9 @@ from repro_torch.configs.base import reduced as reduce_cfg
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core.backend import resolve_device
 from repro_torch.models import model as M
-from repro_torch.serve.decode import decode_step
+from repro_torch.serve.decode import decode_step, encode, prefill_cross_cache
 from repro_torch.serve.kvcache import init_cache
-from repro_torch.train.data import SyntheticDataset
+from repro_torch.train.data import SyntheticDataset, extra_inputs
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,14 +39,26 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
-def generate(model: M.Transformer, prompts: torch.Tensor, gen: int):
+def generate(model: M.Transformer, prompts: torch.Tensor, gen: int, *,
+             vision_embed: torch.Tensor | None = None,
+             enc_embed: torch.Tensor | None = None):
     """Prefill ``prompts`` (B, S) token by token, then ``gen`` greedy
-    tokens.  Returns (generated ids (B, gen), prefill s, decode s); the
-    times are wall seconds ending in a device synchronise."""
+    tokens.  A VLM's cross cache is first built from ``vision_embed`` (B,
+    Nv, d_model), an encoder-decoder model's from :func:`encode` of
+    ``enc_embed`` (B, S_src, d_model), as the reference's driver does,
+    before the clock starts.  Returns (generated ids (B, gen), prefill s,
+    decode s); the times are wall seconds ending in a device
+    synchronise."""
     B, S = prompts.shape
-    dev = model.device
-    caches = init_cache(model.cfg, B, S + gen, dtype=model.tok_emb.dtype,
-                        device=dev)
+    dev, cfg = model.device, model.cfg
+    src_len = enc_embed.shape[1] if cfg.family == "encdec" else None
+    caches = init_cache(cfg, B, S + gen, dtype=model.tok_emb.dtype,
+                        device=dev, src_len=src_len)
+    if cfg.family == "vlm":
+        caches["cross"] = prefill_cross_cache(model, vision_embed)
+    if cfg.family == "encdec":
+        caches["cross"] = prefill_cross_cache(
+            model, encode(model, enc_embed), which="decoder")
     prompts = prompts.to(dev)
     _sync(dev)
     t0 = time.perf_counter()
@@ -86,7 +102,9 @@ def main(argv=None) -> int:
     ds = SyntheticDataset(vocab=cfg.vocab, seq_len=S, global_batch=B,
                           seed=args.seed)
     prompts = ds.batch(0)["tokens"]
-    gen, t_prefill, t_dec = generate(model, prompts, args.gen)
+    extras = extra_inputs(cfg, B, dtype=DTYPES[args.dtype], seq_len=S,
+                          device=device)
+    gen, t_prefill, t_dec = generate(model, prompts, args.gen, **extras)
     print(f"prefill: {S} tokens x {B} seqs in {t_prefill:.2f}s")
     print(f"decode:  {args.gen} tokens x {B} seqs in {t_dec:.2f}s "
           f"({args.gen * B / max(t_dec, 1e-9):.1f} tok/s)")

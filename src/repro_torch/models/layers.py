@@ -119,24 +119,35 @@ def gqa_schema(cfg: ModelConfig, layers: int) -> dict:
 
 def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
                   cache: Optional[tuple] = None, cache_pos: int = 0,
-                  causal: bool = True, impl: str = "auto"):
+                  causal: bool = True,
+                  kv_override: Optional[tuple] = None, impl: str = "auto"):
     """Grouped-query attention; returns (out, new_cache).
 
     With ``cache`` — ``(k, v)``, each (B, Hkv, S_max, Dh) — the new keys
     and values are written into it *in place* at ``cache_pos`` (index
     assignment where the reference uses ``dynamic_update_slice``), and the
-    same two tensors come back as the new cache.  Without a cache, a
-    causal sequence of ``FLASH_MIN_SEQ`` or more tokens runs
+    same two tensors come back as the new cache.  With ``kv_override`` —
+    ``(src,)``, source embeddings (B, S_src, D) — this is cross-attention:
+    K and V are projected from ``src``, neither Q nor K is rotated, and
+    nothing is masked.  Without a cache or an override, a causal sequence
+    of ``FLASH_MIN_SEQ`` or more tokens runs
     :func:`~repro_torch.kernels.flash_attention.ops.flash_attention`
-    (``impl`` picks its kernel or plain version).
+    (``impl`` picks its kernel or plain version); every other call takes
+    the plain softmax.
     """
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
-    if cos is not None:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
+        v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+        if cos is not None:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    else:
+        src = kv_override[0]
+        k = torch.einsum("bsd,dhk->bhsk", src, p.wk)
+        v = torch.einsum("bsd,dhk->bhsk", src, p.wv)
+        causal = False
 
     new_cache = None
     if cache is not None:
@@ -147,7 +158,8 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
         new_cache = (ck, cv)
         causal = False  # masking handled by length below
 
-    if cache is None and causal and S >= FLASH_MIN_SEQ:
+    if cache is None and causal and kv_override is None \
+            and S >= FLASH_MIN_SEQ:
         # long-context prefill/train: O(S*block) online-softmax attention
         out = flash_attention(q, k, v, causal=True, impl=impl)
         return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
@@ -170,6 +182,24 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bhtk->bhsk", probs, v)
     return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+
+
+def cross_attention(p, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Attention of ``x``'s queries to a frozen cross K/V cache ``k``,
+    ``v`` (B, Hkv, S_src, Dh): no rope, no mask, the plain softmax (the
+    reference's ``serve.decode._cross_from_cache``).  ``x`` is already
+    normalised by the caller's cross-attention norm."""
+    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+    groups = q.shape[1] // k.shape[1]
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=1)
+        v = v.repeat_interleave(groups, dim=1)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhsk,bhtk->bhst", q, k).float() * scale
+    o = torch.einsum("bhst,bhtk->bhsk", torch.softmax(s, dim=-1).to(v.dtype),
+                     v)
+    return torch.einsum("bhsk,hkd->bsd", o, p.wo)
 
 
 # --------------------------------------------------------------------------

@@ -12,16 +12,20 @@ orientation, so loading one into the other is a slice per layer
 (:func:`repro_torch.interop.model_params`).  :func:`param_leaves` names
 that correspondence.
 
-The port runs the dense family with GQA or MLA attention (smollm-135m,
-starcoder2-7b, nemotron-4-340b, minicpm3-4b), the MoE family
-(phi3.5-moe-42b; deepseek-v2-lite-16b, whose leading dense layers sit in
-``dense0`` before the MoE ``blocks``), the SSM family (mamba2-2.7b) and
-the hybrid family (zamba2-7b: groups of mamba2 layers, each followed by
-one shared attention block, then trailing mamba2 layers); VLM and
-encoder-decoder models raise ``NotImplementedError``.  The port is
-single-device: the reference's sharding context is not carried over, and
-a MoE layer runs all its experts on the one device
-(:func:`~repro_torch.models.moe.moe_ffn_local`).
+The port runs every family of the reference: the dense family with GQA
+or MLA attention (smollm-135m, starcoder2-7b, nemotron-4-340b,
+minicpm3-4b), the MoE family (phi3.5-moe-42b; deepseek-v2-lite-16b, whose
+leading dense layers sit in ``dense0`` before the MoE ``blocks``), the SSM
+family (mamba2-2.7b), the hybrid family (zamba2-7b: groups of mamba2
+layers, each followed by one shared attention block, then trailing mamba2
+layers), the VLM family (llama-3.2-vision-11b: groups of dense layers,
+each followed by a :class:`CrossBlock` that attends to the vision
+embeddings) and the encoder-decoder family (seamless-m4t-large-v2: a
+stack of :class:`EncoderBlock` over the source frames, then one of
+:class:`DecoderBlock` with causal self-attention and cross-attention to
+the encoder's output).  The port is single-device: the reference's
+sharding context is not carried over, and a MoE layer runs all its
+experts on the one device (:func:`~repro_torch.models.moe.moe_ffn_local`).
 """
 from __future__ import annotations
 
@@ -32,26 +36,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
-from repro_torch.models.layers import (ParamDef, gqa_attention, gqa_schema,
-                                       init_, mla_attention, mla_schema, mlp,
+from repro_torch.models.layers import (ParamDef, cross_attention,
+                                       gqa_attention, gqa_schema, init_,
+                                       mla_attention, mla_schema, mlp,
                                        mlp_schema, rmsnorm, rope_freqs)
 from repro_torch.models.moe import moe_ffn_local, moe_schema
 from repro_torch.models.ssm import mamba2_block, mamba2_schema
 
-# what is still to be ported, by ROADMAP.md queue 1 item
-_NOT_PORTED = {
-    "vlm": "the other model families (llama-3.2-vision, seamless-m4t)",
-    "encdec": "the other model families (llama-3.2-vision, seamless-m4t)",
-}
-
-
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        what = _NOT_PORTED.get(cfg.family, f"family {cfg.family!r}")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; "
-            f"ROADMAP.md queue 1 lists it under {what}")
     if cfg.family != "ssm" and cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attn_type!r} is not ported yet; "
@@ -78,11 +71,15 @@ def schema(cfg: ModelConfig) -> dict:
     """The reference's parameter schema of a model the port runs, with
     each group's leaves stacked over a leading layer axis: ``blocks`` (a
     dense or SSM model's layers; a MoE model's MoE layers; a hybrid
-    model's G·k mamba2 layers), for a MoE model with leading dense layers
-    ``dense0`` (attention + an MLP of ``d_ff_first``) before ``blocks``,
-    and for a hybrid model ``trailing`` (its last n_layers − G·k mamba2
-    layers) and ``shared`` (its one attention + MLP block, stacked over
-    1)."""
+    model's G·k mamba2 layers; a VLM's G·k self-attention layers), for a
+    MoE model with leading dense layers ``dense0`` (attention + an MLP of
+    ``d_ff_first``) before ``blocks``, for a hybrid model ``trailing`` (its
+    last n_layers − G·k mamba2 layers) and ``shared`` (its one attention +
+    MLP block, stacked over 1), for a VLM ``cross`` (its G cross layers,
+    with three norms of which the forward uses two, as the reference's),
+    and for an encoder-decoder model ``encoder`` (``n_enc_layers``),
+    ``enc_norm`` and ``decoder`` (``n_layers``, each with its ``self`` and
+    ``cross`` attention leaves nested, the MLP and three norms)."""
     check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab
     sch: dict = {
@@ -105,6 +102,20 @@ def schema(cfg: ModelConfig) -> dict:
         # ONE shared attention block (true weight sharing, zamba2-style)
         sch["shared"] = {**_attn_schema(cfg, 1), **mlp_schema(cfg, 1),
                          **_norms_schema(cfg, 1)}
+    elif cfg.family == "vlm":
+        G, k = _vlm_split(cfg)
+        sch["blocks"] = {**_attn_schema(cfg, G * k), **mlp_schema(cfg, G * k),
+                         **_norms_schema(cfg, G * k)}
+        sch["cross"] = {**_attn_schema(cfg, G), **mlp_schema(cfg, G),
+                        **_norms_schema(cfg, G, n=3)}
+    elif cfg.family == "encdec":
+        Le, Ld = cfg.n_enc_layers, cfg.n_layers
+        sch["encoder"] = {**_attn_schema(cfg, Le), **mlp_schema(cfg, Le),
+                          **_norms_schema(cfg, Le)}
+        sch["enc_norm"] = ParamDef((d,), ("act_embed",), init="ones")
+        sch["decoder"] = {"self": _attn_schema(cfg, Ld),
+                          "cross": _attn_schema(cfg, Ld),
+                          **mlp_schema(cfg, Ld), **_norms_schema(cfg, Ld, n=3)}
     else:
         if cfg.family == "moe" and cfg.moe and cfg.moe.first_dense:
             Ld = cfg.moe.first_dense
@@ -120,23 +131,34 @@ def schema(cfg: ModelConfig) -> dict:
     return sch
 
 
+def leaf_paths(tree: dict, prefix: tuple = ()) -> Iterator[tuple]:
+    """(path, leaf) of each leaf of a nested dict (a schema, or the
+    reference's parameters), depth first in its order."""
+    for key, d in tree.items():
+        if isinstance(d, dict):
+            yield from leaf_paths(d, prefix + (key,))
+        else:
+            yield prefix + (key,), d
+
+
 def param_leaves(cfg: ModelConfig
                  ) -> Iterator[tuple[str, tuple, Optional[int], ParamDef]]:
     """Each parameter of a :class:`Transformer` as ``(module name, schema
     path, layer or None, ParamDef)``: ``("blocks.3.wq", ("blocks", "wq"),
-    3, def)`` is slice 3 of the reference's stacked ``blocks/wq``, and a
-    hybrid model's ``("shared.wq", ("shared", "wq"), 0, def)`` the one
-    slice of ``shared/wq``."""
-    for key, d in schema(cfg).items():
-        if not isinstance(d, dict):
-            yield key, (key,), None, d
-            continue
-        for name, dd in d.items():
-            if key == "shared":
-                yield f"shared.{name}", (key, name), 0, dd
-                continue
-            for layer in range(dd.shape[0]):
-                yield f"{key}.{layer}.{name}", (key, name), layer, dd
+    3, def)`` is slice 3 of the reference's stacked ``blocks/wq``, an
+    encoder-decoder model's ``("decoder.3.self.wq", ("decoder", "self",
+    "wq"), 3, def)`` slice 3 of ``decoder/self/wq``, and a hybrid model's
+    ``("shared.wq", ("shared", "wq"), 0, def)`` the one slice of
+    ``shared/wq``."""
+    for path, d in leaf_paths(schema(cfg)):
+        if len(path) == 1:
+            yield path[0], path, None, d
+        elif path[0] == "shared":
+            yield ".".join(path), path, 0, d
+        else:
+            for layer in range(d.shape[0]):
+                yield ".".join((path[0], str(layer)) + path[1:]), path, \
+                    layer, d
 
 
 # --------------------------------------------------------------------------
@@ -147,7 +169,24 @@ def _empty(shape, device, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
-class DenseBlock(nn.Module):
+class Leaves(nn.Module):
+    """One layer's parameters, each named as the reference's leaf and
+    shaped as its slice: ``shapes`` maps a name to a shape, or to the
+    shapes of a nested group, which becomes a :class:`Leaves` submodule
+    of that name (an encoder-decoder layer's ``self`` and ``cross``
+    attention)."""
+
+    def __init__(self, shapes: dict, *, device, dtype):
+        super().__init__()
+        for name, shape in shapes.items():
+            if isinstance(shape, dict):
+                self.add_module(name, Leaves(shape, device=device,
+                                             dtype=dtype))
+            else:
+                self.register_parameter(name, _empty(shape, device, dtype))
+
+
+class DenseBlock(Leaves):
     """One pre-norm layer: GQA or MLA attention (by ``cfg.attn_type``) and
     the MLP, or, where the layer has a ``router``, the MoE FFN, each with a
     residual.
@@ -164,22 +203,22 @@ class DenseBlock(nn.Module):
                 "shared_down")
 
     def __init__(self, shapes: dict, *, device, dtype):
-        super().__init__()
-        for name, shape in shapes.items():
-            self.register_parameter(name, _empty(shape, device, dtype))
+        super().__init__(shapes, device=device, dtype=dtype)
         for name in self.OPTIONAL:
             if name not in shapes:
                 self.register_parameter(name, None)
 
     def forward(self, h, cfg: ModelConfig, cos, sin, *, cache=None,
-                pos: int = 0, impl: str = "auto"):
+                pos: int = 0, causal: bool = True, impl: str = "auto"):
         x = rmsnorm(h, self.ln1)
         if cfg.attn_type == "mla":
             a, kc = mla_attention(self, x, cos, sin, mla=cfg.mla,
-                                  cache=cache, cache_pos=pos, impl=impl)
+                                  cache=cache, cache_pos=pos, causal=causal,
+                                  impl=impl)
         else:
             a, kc = gqa_attention(self, x, cos, sin, n_heads=cfg.n_heads,
-                                  cache=cache, cache_pos=pos, impl=impl)
+                                  cache=cache, cache_pos=pos, causal=causal,
+                                  impl=impl)
         h = h + a
         x = rmsnorm(h, self.ln2)
         h = h + (mlp(self, x, cfg.act) if self.router is None
@@ -187,18 +226,75 @@ class DenseBlock(nn.Module):
         return h, kc
 
 
-class MambaBlock(nn.Module):
+class EncoderBlock(DenseBlock):
+    """One encoder layer of an encoder-decoder model, the reference's
+    ``enc_body``: non-causal self-attention, rotated at the source
+    positions, then the MLP, each pre-norm with a residual.  Being
+    non-causal, it never takes the flash branch."""
+
+    def forward(self, h, cfg: ModelConfig, cos, sin):
+        return super().forward(h, cfg, cos, sin, causal=False)[0]
+
+
+class CrossBlock(DenseBlock):
+    """A VLM's cross layer (the reference's ``group_body`` after its k
+    dense layers): attention of the text to the vision embeddings
+    (``ln1``), then the MLP (``ln2``), each with a residual.  ``ln3`` is
+    in the schema and unused, as in the reference.
+
+    K and V come from ``src`` (:func:`gqa_attention`'s ``kv_override``:
+    no rope, no mask, the plain softmax), or, in decode, from the frozen
+    cross cache ``cross_kv``: ``(k, v)``, each (B, Hkv, S_src, Dh)."""
+
+    def forward(self, h, cfg: ModelConfig, src=None, *, cross_kv=None):
+        x = rmsnorm(h, self.ln1)
+        if cross_kv is None:
+            a, _ = gqa_attention(self, x, None, None, n_heads=cfg.n_heads,
+                                 kv_override=(src,))
+        else:
+            a = cross_attention(self, x, *cross_kv)
+        h = h + a
+        return h + mlp(self, rmsnorm(h, self.ln2), cfg.act)
+
+
+class DecoderBlock(Leaves):
+    """One decoder layer of an encoder-decoder model, the reference's
+    ``dec_body``: causal self-attention (``self``, norm ``ln1``; the flash
+    branch at ``FLASH_MIN_SEQ`` tokens or more), cross-attention to the
+    encoder's output (``cross``, ``ln2``; K and V from ``enc`` or, in
+    decode, the frozen cross cache ``cross_kv``), then the MLP (``ln3``),
+    each with a residual.  Returns (h, the self-attention cache)."""
+
+    def __init__(self, shapes: dict, *, device, dtype):
+        super().__init__(shapes, device=device, dtype=dtype)
+        if "w_gate" not in shapes:
+            self.register_parameter("w_gate", None)
+
+    def forward(self, h, cfg: ModelConfig, cos, sin, enc=None, *,
+                cache=None, pos: int = 0, cross_kv=None,
+                impl: str = "auto"):
+        # the reference's names: ``self`` is this layer's self-attention
+        a, kc = gqa_attention(self.self, rmsnorm(h, self.ln1), cos, sin,
+                              n_heads=cfg.n_heads, cache=cache,
+                              cache_pos=pos, impl=impl)
+        h = h + a
+        x = rmsnorm(h, self.ln2)
+        if cross_kv is None:
+            a, _ = gqa_attention(self.cross, x, None, None,
+                                 n_heads=cfg.n_heads, kv_override=(enc,))
+        else:
+            a = cross_attention(self.cross, x, *cross_kv)
+        h = h + a
+        return h + mlp(self, rmsnorm(h, self.ln3), cfg.act), kc
+
+
+class MambaBlock(Leaves):
     """One pre-norm mamba2 layer with a residual, the reference's
     ``_mamba_layer``.
 
     Its parameters carry the reference's names and orientation
     (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
     ``d_skip``, ``norm_w``, ``out_proj``, ``ln1``)."""
-
-    def __init__(self, shapes: dict, *, device, dtype):
-        super().__init__()
-        for name, shape in shapes.items():
-            self.register_parameter(name, _empty(shape, device, dtype))
 
     def forward(self, h, cfg: ModelConfig, *, conv_state=None,
                 ssm_state=None, impl: str = "auto"):
@@ -217,7 +313,12 @@ class Transformer(nn.Module):
     model) and its MoE layers in ``blocks``; a hybrid model holds its G·k
     mamba2 layers there, its trailing mamba2 layers in
     ``trailing`` and **one** :class:`DenseBlock`, ``shared``, which it
-    applies after every group of k mamba2 layers (one set of weights).
+    applies after every group of k mamba2 layers (one set of weights); a
+    VLM holds its G·k self-attention layers in ``blocks`` and its G cross
+    layers (:class:`CrossBlock`) in ``cross``, one after each group of k;
+    an encoder-decoder model holds ``encoder`` (:class:`EncoderBlock`),
+    ``enc_norm`` and ``decoder`` (:class:`DecoderBlock`), and no
+    ``blocks``.
 
     The parameters are made on ``device`` (``cuda`` unless the caller asks
     for ``cpu``; without a GPU a CUDA device raises
@@ -238,21 +339,29 @@ class Transformer(nn.Module):
             "unembed", None if cfg.tie_embeddings
             else _empty(sch["unembed"].shape, dev, dtype))
 
+        def per_layer(leaves: dict) -> dict:
+            return {k: per_layer(d) if isinstance(d, dict) else d.shape[1:]
+                    for k, d in leaves.items()}
+
         def stack(group: str, block) -> nn.ModuleList:
             leaves = sch.get(group, {})
-            per_layer = {k: d.shape[1:] for k, d in leaves.items()}
-            n = next(iter(leaves.values())).shape[0] if leaves else 0
-            return nn.ModuleList(block(per_layer, device=dev, dtype=dtype)
-                                 for _ in range(n))
+            n = next(leaf_paths(leaves))[1].shape[0] if leaves else 0
+            return nn.ModuleList(block(per_layer(leaves), device=dev,
+                                       dtype=dtype) for _ in range(n))
 
         mamba = cfg.family in ("ssm", "hybrid")
         self.dense0 = stack("dense0", DenseBlock)
         self.blocks = stack("blocks", MambaBlock if mamba else DenseBlock)
         if cfg.family == "hybrid":
             self.trailing = stack("trailing", MambaBlock)
-            self.shared = DenseBlock(
-                {k: d.shape[1:] for k, d in sch["shared"].items()},
-                device=dev, dtype=dtype)
+            self.shared = DenseBlock(per_layer(sch["shared"]), device=dev,
+                                     dtype=dtype)
+        elif cfg.family == "vlm":
+            self.cross = stack("cross", CrossBlock)
+        elif cfg.family == "encdec":
+            self.encoder = stack("encoder", EncoderBlock)
+            self.enc_norm = _empty(sch["enc_norm"].shape, dev, dtype)
+            self.decoder = stack("decoder", DecoderBlock)
 
     @property
     def device(self) -> torch.device:
@@ -266,14 +375,40 @@ class Transformer(nn.Module):
         unembed = self.tok_emb if self.unembed is None else self.unembed
         return h @ unembed.T
 
+    def source(self, src: Optional[torch.Tensor], name: str
+               ) -> torch.Tensor:
+        """The source embeddings ``name`` (B, S_src, d_model) on this
+        model's device and in its dtype, as the reference casts them."""
+        if src is None:
+            raise ValueError(f"{self.cfg.name}: the {self.cfg.family} "
+                             f"forward needs {name} (B, S_src, d_model)")
+        return src.to(self.device, self.tok_emb.dtype)
+
+    def encode(self, enc_embed: torch.Tensor) -> torch.Tensor:
+        """An encoder-decoder model's encoder stack over the source frames
+        ``enc_embed`` (B, S_src, d_model), rotated at positions 0 ..
+        S_src − 1, then ``enc_norm``: the K/V source of every decoder
+        layer's cross-attention."""
+        enc = self.source(enc_embed, "enc_embed")
+        cos, sin = _rope(self.cfg, enc.shape[1], device=self.device)
+        for blk in self.encoder:
+            enc = blk(enc, self.cfg, cos, sin)
+        return rmsnorm(enc, self.enc_norm)
+
     def forward(self, tokens: torch.Tensor, *,
+                vision_embed: Optional[torch.Tensor] = None,
+                enc_embed: Optional[torch.Tensor] = None,
                 impl: str = "auto") -> torch.Tensor:
-        """Token logits (B, S, vocab) for train/prefill from tokens (B, S).
+        """Token logits (B, S, vocab) for train/prefill from tokens (B, S),
+        and for a VLM the vision embeddings ``vision_embed`` (B, Nv,
+        d_model), for an encoder-decoder model the source frames
+        ``enc_embed`` (B, S_src, d_model): the reference's batch keys.
 
         ``impl`` is handed to the kernel entry points: the flash
-        attention, which causal sequences of ``FLASH_MIN_SEQ`` tokens or
-        more run through, and every mamba2 layer's ``ssd_scan``.  Both
-        CUDA kernels are forward-only: call this under
+        attention, which causal self-attention over ``FLASH_MIN_SEQ``
+        tokens or more runs through (never cross-attention or the
+        encoder's), and every mamba2 layer's ``ssd_scan``.  Both CUDA
+        kernels are forward-only: call this under
         ``torch.inference_mode()`` on a GPU."""
         B, S = tokens.shape
         cfg = self.cfg
@@ -291,6 +426,19 @@ class Transformer(nn.Module):
                 h, _ = self.shared(h, cfg, cos, sin, impl=impl)
             for blk in self.trailing:
                 h, _ = blk(h, cfg, impl=impl)
+            return self.logits(h)
+        if cfg.family == "vlm":
+            G, k = _vlm_split(cfg)
+            vis = self.source(vision_embed, "vision_embed")
+            for g in range(G):
+                for blk in self.blocks[g * k:(g + 1) * k]:
+                    h, _ = blk(h, cfg, cos, sin, impl=impl)
+                h = self.cross[g](h, cfg, vis)
+            return self.logits(h)
+        if cfg.family == "encdec":
+            enc = self.encode(enc_embed)
+            for blk in self.decoder:
+                h, _ = blk(h, cfg, cos, sin, enc, impl=impl)
             return self.logits(h)
         for blk in (*self.dense0, *self.blocks):
             h, _ = blk(h, cfg, cos, sin, impl=impl)

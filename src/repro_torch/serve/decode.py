@@ -6,13 +6,17 @@ scans the layers with the caches as scan inputs and outputs; here each
 layer writes its new cache entries *in place* into its slice of the
 stacked caches (keys and values, or MLA's compressed latent, at ``pos``;
 a mamba2 layer's conv tail and state), so the returned caches are the
-same tensors that came in.
+same tensors that came in.  A VLM's or an encoder-decoder model's cross
+layers read a frozen cross K/V cache, built once per request by
+:func:`prefill_cross_cache` (after :func:`encode` for an encoder-decoder
+model), and never write it.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.model import Transformer, _hybrid_split, _rope
+from repro_torch.models.model import (Transformer, _hybrid_split, _rope,
+                                      _vlm_split)
 
 
 def _attn_cache(c: dict, layer: int):
@@ -23,9 +27,13 @@ def _attn_cache(c: dict, layer: int):
     return c["k"][layer], c["v"][layer]
 
 
+# the cache group that holds each family's self-attention K/V
+_SELF_CACHE = {"hybrid": "shared", "encdec": "self"}
+
+
 def _max_cache_len(caches: dict, cfg) -> int:
-    """The sequence length of the attention cache the family keeps."""
-    c = caches["shared"] if cfg.family == "hybrid" else caches["blocks"]
+    """The sequence length of the self-attention cache the family keeps."""
+    c = caches[_SELF_CACHE.get(cfg.family, "blocks")]
     return c["ckv"].shape[2] if "ckv" in c else c["k"].shape[3]
 
 
@@ -52,7 +60,11 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
     then its MoE layers on ``caches["blocks"]``, each MoE FFN on the
     step's B tokens.  A hybrid model runs group g's k mamba2 layers, then
     the shared block with KV cache slot g, for each group, then its
-    trailing layers.  The caches are updated in place and returned."""
+    trailing layers.  A VLM runs group g's k dense layers, then cross
+    layer g on slot g of the frozen ``caches["cross"]``; an
+    encoder-decoder model runs each decoder layer on its ``self`` cache
+    slot and its ``cross`` slot.  The self-attention caches are updated
+    in place; every cache comes back."""
     cfg = model.cfg
     B, S1 = tokens.shape
     h = model.embed(tokens)
@@ -76,8 +88,53 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
         if len(model.trailing):
             h = _mamba_layers(model.trailing, cfg, caches["trailing"], h)
         return model.logits(h), caches
+    if cfg.family == "vlm":
+        G, k = _vlm_split(cfg)
+        for g in range(G):
+            for layer in range(g * k, (g + 1) * k):
+                h, _ = model.blocks[layer](
+                    h, cfg, cos, sin, pos=pos,
+                    cache=_attn_cache(caches["blocks"], layer))
+            h = model.cross[g](h, cfg,
+                               cross_kv=_attn_cache(caches["cross"], g))
+        return model.logits(h), caches
+    if cfg.family == "encdec":
+        for layer, blk in enumerate(model.decoder):
+            h, _ = blk(h, cfg, cos, sin, pos=pos,
+                       cache=_attn_cache(caches["self"], layer),
+                       cross_kv=_attn_cache(caches["cross"], layer))
+        return model.logits(h), caches
     for group, blocks in (("dense0", model.dense0), ("blocks", model.blocks)):
         for layer, blk in enumerate(blocks):
             h, _ = blk(h, cfg, cos, sin, pos=pos,
                        cache=_attn_cache(caches[group], layer))
     return model.logits(h), caches
+
+
+@torch.inference_mode()
+def encode(model: Transformer, enc_embed: torch.Tensor) -> torch.Tensor:
+    """The encoder stack of an encoder-decoder model over the source frames
+    ``enc_embed`` (B, S_src, d_model), ending in ``enc_norm``: what
+    :func:`prefill_cross_cache` projects into the decoder's cross cache."""
+    return model.encode(enc_embed)
+
+
+@torch.inference_mode()
+def prefill_cross_cache(model: Transformer, src: torch.Tensor,
+                        which: str = "cross") -> dict:
+    """The frozen cross-attention cache from source embeddings ``src``
+    (B, S_src, d_model): ``{"k", "v"}``, each (G or L, B, Hkv, S_src,
+    Dh), projected by each cross layer's ``wk`` / ``wv`` without rope.
+
+    A VLM's comes from its G ``cross`` layers over the vision embeddings
+    (``which="cross"``); an encoder-decoder model's from each decoder
+    layer's ``cross`` attention over :func:`encode`'s output (the
+    reference passes ``which="decoder"``; a model without ``cross``
+    layers reads the decoder's either way, as the reference does)."""
+    src = model.source(src, "src")
+    layers = (model.cross if which == "cross" and model.cfg.family == "vlm"
+              else [blk.cross for blk in model.decoder])
+    return {name: torch.stack([torch.einsum("bsd,dhk->bhsk", src,
+                                            getattr(p, "w" + name))
+                               for p in layers])
+            for name in ("k", "v")}

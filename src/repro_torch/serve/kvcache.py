@@ -13,8 +13,8 @@ shards from) are equal:
 
 :func:`cache_schema` covers every family (shape arithmetic only);
 :func:`init_cache` allocates the caches the port can decode with: the
-dense and MoE families (GQA or MLA), the SSM family and the hybrid
-family.
+dense and MoE families (GQA or MLA), the SSM, hybrid, VLM and
+encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -95,7 +95,8 @@ def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               dtype: torch.dtype = torch.float32, device="cuda") -> dict:
+               dtype: torch.dtype = torch.float32, device="cuda",
+               src_len: int | None = None) -> dict:
     """Zeroed decode caches made on ``device``, in ``dtype`` except where
     the schema pins one: for a dense GQA model ``{"blocks": {"k", "v"}}``,
     each (L, B, Hkv, max_seq, Dh); for a dense MLA model ``{"blocks":
@@ -107,10 +108,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     enter: the caches are O(1) in sequence length); for a hybrid model the
     mamba2 caches of its G·k grouped layers (``blocks``) and of its
     trailing layers (``trailing``), and ``shared``: the shared block's
-    k/v, one slot per application, (G, B, Hkv, max_seq, Dh)."""
+    k/v, one slot per application, (G, B, Hkv, max_seq, Dh); for a VLM
+    the self-attention layers' k/v (``blocks``, G·k layers) and the cross
+    layers' (``cross``, (G, B, Hkv, n_vision_tokens, Dh)); for an
+    encoder-decoder model the decoder's self-attention k/v (``self``) and
+    its cross k/v over ``src_len`` source positions (``cross``, (L, B,
+    Hkv, src_len or max_seq, Dh)).  The cross caches are zeros here:
+    :func:`~repro_torch.serve.decode.prefill_cross_cache` builds the
+    frozen ones."""
     check_ported(cfg)
     dev = resolve_device(device)
-    sch = cache_schema(cfg, batch, max_seq)
+    sch = cache_schema(cfg, batch, max_seq, src_len=src_len)
     return {grp: {name: torch.zeros(d.shape, dtype=d.dtype or dtype,
                                     device=dev)
                   for name, d in leaves.items()}

@@ -21,8 +21,11 @@ forwards through the kernels to their forwards through the plain
 versions within 1e-4 (zamba2-7b and minicpm3-4b at full width with their
 depth cut, through the flash kernel at head dims 112 and 96 and the SSD
 kernel at d_state 64; reduced deepseek-v2-lite-16b and phi3.5-moe-42b
-with their own head dims, 192 and 128).  The MoE FFN on the card must
-route as on the CPU and agree with it within 1e-5.  Two scenario presets, the placement service's
+with their own head dims, 192 and 128; reduced llama-3.2-vision-11b and
+seamless-m4t-large-v2 with theirs, 128 and 64, their cross-attention to
+seeded source embeddings on the plain path, and their decode steps, on
+the frozen cross cache, to the same forward).  The MoE FFN on the card
+must route as on the CPU and agree with it within 1e-5.  Two scenario presets, the placement service's
 fast storm and four fat-tree replicas with their placements on the card
 must return what they return with their placements on the CPU, and every
 spelling of the card must give one shared default engine.
@@ -216,6 +219,7 @@ NEW_HEAD_DIM_SHAPES = [
     (1, 4, 4, 130, 130, 112, False),     # non-causal
     (2, 32, 32, 2048, 2048, 112, True),  # zamba2-7b's shared block
     (2, 40, 40, 2048, 2048, 96, True),   # minicpm3-4b's MLA prefill
+    (2, 16, 16, 2048, 2048, 64, True),   # seamless-m4t's decoder self-attn
 ]
 
 
@@ -247,6 +251,7 @@ F64_SHAPES = [
     (1, 8, 8, 512, 512, 112),
     (1, 8, 2, 256, 256, 128),
     (1, 4, 4, 256, 256, 192),
+    (1, 16, 16, 512, 512, 64),   # seamless-m4t's 16 heads of 64
 ]
 
 
@@ -567,6 +572,84 @@ def test_moe_forward_kernel_matches_plain(cuda_device, arch, over, Dh):
         want = model(toks, impl="ref")
     assert launched == cfg.n_layers and shape[-1] == Dh
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+# reduced VLM (4 groups of 4 self layers and a cross layer) and
+# encoder-decoder (2 + 3 layers) models with their own head dims and heads
+CROSS_MODELS = [
+    ("llama-3.2-vision-11b",
+     dict(n_layers=20, cross_attn_every=4, n_heads=8, n_kv_heads=2,
+          head_dim=128), 16, 128),
+    ("seamless-m4t-large-v2",
+     dict(n_enc_layers=2, n_layers=3, n_heads=4, n_kv_heads=4, head_dim=64,
+          n_audio_frames=300), 3, 64),
+]
+
+
+def _source(cfg, B, device):
+    """Seeded source embeddings: a VLM's vision tokens, an encoder-decoder
+    model's frames, as a ``forward`` keyword."""
+    g = torch.Generator().manual_seed(3)
+    if cfg.family == "vlm":
+        shape, key = (B, cfg.n_vision_tokens, cfg.d_model), "vision_embed"
+    else:
+        shape, key = (B, cfg.n_audio_frames, cfg.d_model), "enc_embed"
+    return {key: torch.randn(shape, generator=g).to(device)}
+
+
+@pytest.mark.parametrize("arch,over,self_layers,Dh", CROSS_MODELS)
+def test_cross_models_forward_kernel_matches_plain(cuda_device, arch, over,
+                                                   self_layers, Dh):
+    """B 1 x 2048 (the flash branch): the flash kernel runs once per
+    causal self-attention layer, never for a cross-attention or the
+    encoder; the logits are held to the plain version's forward."""
+    cfg = reduced(get_arch(arch), **over)
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    src = _source(cfg, 1, cuda_device)
+    reset_launches()
+    with torch.inference_mode():
+        got = model(toks, impl="kernel", **src)
+        launched, shape = LAUNCHES["flash_attention"], SHAPES[
+            "flash_attention"]
+        want = model(toks, impl="ref", **src)
+    assert launched == self_layers and shape[-1] == Dh
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch,over,self_layers,Dh", CROSS_MODELS)
+def test_cross_models_decode_on_card_matches_forward(cuda_device, arch, over,
+                                                     self_layers, Dh):
+    """Eight decode steps on the card from empty self caches, the cross
+    cache built by ``prefill_cross_cache`` (after ``encode``), held to the
+    forward's logits at the same positions."""
+    from repro_torch.serve.decode import (decode_step, encode,
+                                          prefill_cross_cache)
+    from repro_torch.serve.kvcache import init_cache
+    cfg = reduced(get_arch(arch), **over)
+    model = M.init(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab, (2, 8), device=cuda_device)
+    src = _source(cfg, 2, cuda_device)
+    (key, emb), = src.items()
+    with torch.inference_mode():
+        fwd = model(toks, **src)
+    caches = init_cache(cfg, 2, 8, device=cuda_device,
+                        src_len=emb.shape[1] if key == "enc_embed" else None)
+    caches["cross"] = (prefill_cross_cache(model, emb) if key ==
+                       "vision_embed" else prefill_cross_cache(
+                           model, encode(model, emb), which="decoder"))
+    for t in range(8):
+        got, caches = decode_step(model, caches, toks[:, t:t + 1], t)
+        torch.testing.assert_close(got[:, 0], fwd[:, t], atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_cross_models_serve_main_on_card(cuda_device, capsys, arch):
+    assert serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                       "--prompt-len", "8", "--gen", "4"]) == 0
+    assert capsys.readouterr().out.count("\n") == 3
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "phi3.5-moe-42b"])

@@ -50,7 +50,7 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.kernels.ssd_scan.ref\n"
         "import repro_torch.models.model, repro_torch.models.ssm\n"
-        "import repro_torch.serve.decode\n"
+        "import repro_torch.serve.decode, repro_torch.serve.kvcache\n"
         "import repro_torch.launch.serve, repro_torch.train.data\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.workloads\n"
@@ -136,6 +136,34 @@ def test_dispatching_entry_points_target_the_card(monkeypatch, entry):
         calls[entry]()
 
 
+@pytest.mark.parametrize("entry", ["forward", "encode",
+                                   "prefill_cross_cache"])
+def test_source_inputs_follow_the_model(entry):
+    """``Transformer.forward``'s ``vision_embed`` / ``enc_embed``, ``encode``
+    and ``prefill_cross_cache`` take source embeddings from anywhere and
+    run where the model lives (``cuda`` unless the caller asked for the
+    CPU): a ``meta`` tensor handed to a CPU model is moved to the CPU,
+    where it has no data to copy, and raises there."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model
+    from repro_torch.serve.decode import encode, prefill_cross_cache
+
+    vlm = model.init(reduced(get_arch("llama-3.2-vision-11b")),
+                     device="cpu")
+    enc = model.init(reduced(get_arch("seamless-m4t-large-v2")),
+                     device="cpu")
+    meta = torch.empty((1, 8, 64), device="meta")
+    calls = {
+        "forward": lambda: vlm(torch.zeros((1, 4), dtype=torch.int64),
+                               vision_embed=meta),
+        "encode": lambda: encode(enc, meta),
+        "prefill_cross_cache": lambda: prefill_cross_cache(vlm, meta),
+    }
+    with pytest.raises(NotImplementedError, match="meta"):
+        calls[entry]()
+
+
 def test_interop_round_trip():
     import numpy as np
     from repro_torch import interop
@@ -157,9 +185,11 @@ def test_interop_round_trip():
     assert interop.topology(fattree_k=4).n_nodes == 16
 
 
-@pytest.mark.parametrize("entry", ["Transformer", "init", "init_cache",
-                                   "serve_main", "extra_inputs",
-                                   "Transformer-mamba2", "init_cache-mamba2"])
+@pytest.mark.parametrize("entry", [
+    "Transformer", "init", "init_cache", "serve_main", "extra_inputs",
+    "Transformer-mamba2", "init_cache-mamba2", "Transformer-vlm",
+    "Transformer-encdec", "init_cache-vlm", "init_cache-encdec",
+    "serve_main-vlm", "serve_main-encdec"])
 def test_model_entry_points_target_the_card(monkeypatch, entry):
     """The model, its caches and the serve driver are made on ``cuda``
     unless the caller asks for the CPU: without a GPU they raise, and
@@ -175,6 +205,9 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_arch("smollm-135m"))
     ssm_cfg = reduced(get_arch("mamba2-2.7b"))
+    vlm = "llama-3.2-vision-11b"
+    vlm_cfg = reduced(get_arch(vlm))
+    enc_cfg = reduced(get_arch("seamless-m4t-large-v2"))
     calls = {
         "Transformer": lambda: model.Transformer(cfg),
         "init": lambda: model.init(cfg, seed=0),
@@ -185,6 +218,15 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
             reduced(get_arch("llama-3.2-vision-11b")), 1),
         "Transformer-mamba2": lambda: model.Transformer(ssm_cfg),
         "init_cache-mamba2": lambda: init_cache(ssm_cfg, 1, 8),
+        "Transformer-vlm": lambda: model.Transformer(vlm_cfg),
+        "Transformer-encdec": lambda: model.Transformer(enc_cfg),
+        "init_cache-vlm": lambda: init_cache(vlm_cfg, 1, 8),
+        "init_cache-encdec": lambda: init_cache(enc_cfg, 1, 8, src_len=16),
+        "serve_main-vlm": lambda: serve.main([
+            "--arch", vlm, "--reduced", "--gen", "1", "--prompt-len", "2"]),
+        "serve_main-encdec": lambda: serve.main([
+            "--arch", "seamless-m4t-large-v2", "--reduced", "--gen", "1",
+            "--prompt-len", "2"]),
     }
     with pytest.raises(backend.BackendUnavailableError):
         calls[entry]()

@@ -159,13 +159,6 @@ def test_model_params_rejects_mismatch():
                              device="cpu")
 
 
-@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
-                                  "llama-3.2-vision-11b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.Transformer(base.reduced(get_arch(name)), device="cpu")
-
-
 # ---------------------------------------------------------------- forward
 @pytest.mark.parametrize("S", [64, FLASH_MIN_SEQ])
 def test_forward_matches_reference(S):

@@ -3,8 +3,11 @@
     python3 tools/forward_drift.py --arch phi3.5-moe-42b --depths 4,8,12
 
 For each depth the model is built at full width with its depth cut to
-that many layers, weights drawn on the card from seed 0 (``M.init``), and
-run on ``SyntheticDataset(seed=0)`` tokens, B 2 x 2048, three times:
+that many layers (an encoder-decoder model's decoder; its encoder keeps
+its own depth), weights drawn on the card from seed 0 (``M.init``), and
+run on ``SyntheticDataset(seed=0)`` tokens, B 2 x 2048 (with
+``chip_smoke.source_inputs``' seeded vision embeddings or frames for a
+VLM or an encoder-decoder model), three times:
 through the kernels (``impl="kernel"``), through the plain versions, and
 through the plain versions with the plain flash attention blocked
 differently (query blocks of 256 and key blocks of 512 instead of 512
@@ -13,7 +16,8 @@ compared, kernel against plain and reblocked plain against plain, by
 ``chip_smoke.routing_verdict`` (the MoE cells' rule: route flips, and the
 logits before each row's first flip) and by the worst ratio of a logit's
 difference to the ``allclose(atol=rtol=1e-4)`` allowance there, with the
-hidden state's drift after each layer relative to its RMS.  The second
+hidden state's drift after each layer (each block the forward runs,
+in its order, the encoder's excepted) relative to its RMS.  The second
 pair shows the float32 noise floor that the first is held against.  One
 JSON line per depth and pair, then the card's name and power limit.
 Needs a CUDA GPU and ``nvcc``.
@@ -41,7 +45,6 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.models import layers
     from repro_torch.models import model as M
     from repro_torch.train.data import SyntheticDataset
@@ -54,33 +57,38 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     _build.build_all()
 
-    def reblocked(q, k, v, causal=True, impl="auto"):
-        return flash_attention_ref(q, k, v, causal=causal, q_block=256,
-                                   kv_block=512)
-
     for depth in (int(d) for d in args.depths.split(",")):
         cfg = dataclasses.replace(get_arch(args.arch), n_layers=depth)
         model = M.init(cfg, seed=0, device=dev)
         toks = SyntheticDataset(cfg.vocab, 2048, 2, seed=0).batch(0)[
             "tokens"].to(dev)
+        source = cs.source_inputs(cfg, 2, 2048, dev)
         moe = cfg.family == "moe"
+        blocks = [m for m in model.modules()
+                  if isinstance(m, (M.DenseBlock, M.CrossBlock,
+                                    M.DecoderBlock, M.MambaBlock))
+                  and not isinstance(m, M.EncoderBlock)]
 
         @torch.inference_mode()
         def run(impl):
             calls, hidden = [], []
-            with (cs.recording_routes(calls) if moe
-                  else contextlib.nullcontext()):
-                h = model.embed(toks)
-                cos, sin = M._rope(cfg, 2048, device=dev)
-                for blk in (*model.dense0, *model.blocks):
-                    h, _ = blk(h, cfg, cos, sin, impl=impl)
-                    hidden.append(h)
-                logits = model.logits(h)
+
+            def keep(module, args, out):
+                hidden.append(out[0] if isinstance(out, tuple) else out)
+            hooks = [blk.register_forward_hook(keep) for blk in blocks]
+            try:
+                with (cs.recording_routes(calls) if moe
+                      else contextlib.nullcontext()):
+                    logits = model(toks, impl=impl, **source)
+            finally:
+                for hook in hooks:
+                    hook.remove()
             return hidden, logits, cs.by_position(calls, 2)
 
         plain = run("ref")
         runs = {"kernel": run("kernel")}
-        with cs.patched(layers, "flash_attention", lambda f: reblocked):
+        with cs.patched(layers, "flash_attention",
+                        lambda f: cs.reblocked_flash):
             runs["plain_reblocked"] = run("ref")
         for name, (hidden, logits, routes) in runs.items():
             p_hidden, p_logits, p_routes = plain
