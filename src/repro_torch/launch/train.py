@@ -1,0 +1,98 @@
+"""End-to-end training driver on one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+        --reduced --steps 200 --batch 8 --seq 64 [--device cpu]
+
+Composes the stack: config -> model (weights drawn from ``--seed`` on the
+target device) -> AdamW (warmup 10 steps) -> optional ``--resume`` from
+the latest checkpoint in ``--checkpoint-dir`` -> the train step on
+synthetic data (``SyntheticDataset``; the reference's zero stubs for a
+VLM's vision embeddings or an encoder-decoder model's frames) ->
+checkpoints every ``--checkpoint-every`` steps.  The flags and the log
+lines are the reference's (``repro.launch.train``), without its
+``--mesh`` and ``--moe-impl``: the port trains on one device, with MoE
+dispatch local to it.
+
+On a GPU a step runs wherever the model's forward can run under grad: the
+CUDA flash attention (causal self-attention at 2048 tokens or more) and
+SSD scan (every mamba2 layer) kernels are forward-only and raise there.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.configs.base import reduced as reduce_cfg
+from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.core.backend import resolve_device
+from repro_torch.models import model as M
+from repro_torch.train.checkpoint import (latest_checkpoint,
+                                          restore_checkpoint,
+                                          save_checkpoint)
+from repro_torch.train.data import SyntheticDataset, extra_inputs
+from repro_torch.train.optimizer import AdamW
+from repro_torch.train.train_step import make_train_step
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m", choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="train the reduced (CPU-sized) variant")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    device = resolve_device(args.device)
+    model = M.init(cfg, seed=args.seed, device=device)
+    opt = AdamW(lr=args.lr, warmup_steps=10)
+    opt_state = opt.init(model)
+
+    start_step = 0
+    if args.resume and args.checkpoint_dir:
+        path = latest_checkpoint(args.checkpoint_dir)
+        if path:
+            restored = restore_checkpoint(path, model, opt_state)
+            opt_state = restored["opt"]
+            start_step = restored["step"]
+            print(f"resumed from {path} at step {start_step}")
+
+    step_fn = make_train_step(cfg, opt)
+    ds = SyntheticDataset(vocab=cfg.vocab, seq_len=args.seq,
+                          global_batch=args.batch, seed=args.seed)
+    extras = extra_inputs(cfg, args.batch, seq_len=args.seq, device=device)
+
+    t0 = time.perf_counter()
+    tokens_seen = 0
+    for step in range(start_step, args.steps):
+        batch = ds.batch(step)
+        batch.update(extras)
+        opt_state, metrics = step_fn(model, opt_state, batch)
+        tokens_seen += args.batch * args.seq
+        if (step + 1) % args.log_every == 0 or step == start_step:
+            dt = time.perf_counter() - t0
+            print(f"step {step + 1:5d} loss {float(metrics['loss']):.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"tok/s {tokens_seen / max(dt, 1e-9):,.0f}")
+        if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
+            p = save_checkpoint(args.checkpoint_dir, step + 1, model,
+                                opt_state)
+            print(f"checkpointed -> {p}")
+    print(f"done: {args.steps - start_step} steps in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -29,7 +29,7 @@ experts on the one device (:func:`~repro_torch.models.moe.moe_ffn_local`).
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional
+from typing import Iterator, Mapping, Optional
 
 import torch
 from torch import nn
@@ -159,6 +159,33 @@ def param_leaves(cfg: ModelConfig
             for layer in range(d.shape[0]):
                 yield ".".join((path[0], str(layer)) + path[1:]), path, \
                     layer, d
+
+
+def stacked_leaves(cfg: ModelConfig, by_name: Mapping[str, torch.Tensor]
+                   ) -> Iterator[tuple[str, torch.Tensor]]:
+    """The reference's leaves from tensors keyed by module name (the
+    parameters, their gradients, AdamW's ``m`` or ``v``): ``("blocks/wq",
+    the slices of every layer stacked over a leading axis)``, a hybrid
+    model's ``shared`` stacked over 1, an unstacked leaf as it is.  The
+    leaves come in the reference's order (``jax.tree.leaves``: sorted keys
+    at every level), each stacked only when it is reached."""
+    groups: dict = {}
+    for name, path, layer, _ in param_leaves(cfg):
+        groups.setdefault(path, []).append((name, layer))
+    for path in sorted(groups):
+        group = groups[path]
+        name, layer = group[0]
+        yield "/".join(path), (by_name[name] if layer is None else
+                               torch.stack([by_name[n] for n, _ in group]))
+
+
+def unstacked(cfg: ModelConfig, leaves: Mapping[str, torch.Tensor]
+              ) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`stacked_leaves`: each module name's slice (a
+    view) of its leaf in ``leaves``, keyed ``"blocks/wq"``."""
+    return {name: leaves["/".join(path)] if layer is None
+            else leaves["/".join(path)][layer]
+            for name, path, layer, _ in param_leaves(cfg)}
 
 
 # --------------------------------------------------------------------------

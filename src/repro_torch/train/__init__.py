@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (the synthetic data pipeline)."""
+"""Training-side modules of the port: the synthetic data pipeline, AdamW,
+the train step and checkpoints."""

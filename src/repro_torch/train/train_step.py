@@ -1,0 +1,89 @@
+"""Loss and train step (gradients + AdamW update), with microbatch
+accumulation: the reference's ``repro.train.train_step`` on a
+:class:`~repro_torch.models.model.Transformer`.
+
+    step = make_train_step(cfg, AdamW(lr=3e-3), microbatches=1)
+    opt_state, metrics = step(model, opt_state, batch)
+
+The model's parameters are updated in place; ``metrics`` holds ``loss``,
+``grad_norm`` and ``step`` as 0-d tensors on the model's device.  The
+gradients come from autograd through the model's forward, so on a GPU a
+step runs wherever that forward can run under grad: the CUDA flash
+attention and SSD scan kernels are forward-only and raise under grad, as
+the reference's kernels define no VJP.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import Transformer
+from repro_torch.train.optimizer import AdamW, AdamWState
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token NLL, computed in float32: logsumexp minus the label's
+    logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (lse - ll).mean()
+
+
+def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
+    """The cross entropy of ``model`` on ``batch``: ``tokens`` and
+    ``labels`` (B, S), and a VLM's ``vision_embed`` or an encoder-decoder
+    model's ``enc_embed``, as :meth:`Transformer.forward` takes them."""
+    logits = model(batch["tokens"], vision_embed=batch.get("vision_embed"),
+                   enc_embed=batch.get("enc_embed"))
+    return cross_entropy(logits, batch["labels"].to(logits.device))
+
+
+def _grads(model: Transformer, params: dict, batch: dict):
+    """(loss, gradients by parameter name); a parameter the forward does
+    not use (a VLM cross layer's ``ln3``) gets zeros, as under
+    ``jax.grad``."""
+    loss = loss_fn(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(params.items(), grads)}
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
+    """Returns ``train_step(model, opt_state, batch) -> (opt_state,
+    metrics)`` for a model of ``cfg``.  ``microbatches > 1`` splits the
+    batch along dim 0 into that many equal slices, sums their gradients
+    in float32 in slice order, and divides the sum and the summed loss by
+    ``microbatches`` (activation memory / global-batch decoupling)."""
+
+    def train_step(model: Transformer, opt_state: AdamWState, batch: dict):
+        if model.cfg != cfg:
+            raise ValueError(f"the step was made for {cfg.name}, the model "
+                             f"is {model.cfg.name}")
+        params = dict(model.named_parameters())
+        if microbatches == 1:
+            loss, grads = _grads(model, params, batch)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % microbatches:
+                raise ValueError(f"batch {B} does not split into "
+                                 f"{microbatches} microbatches")
+            mb = B // microbatches
+            gsum = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                   device=p.device)
+                    for k, p in params.items()}
+            lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+            for i in range(microbatches):
+                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                loss, g = _grads(model, params, part)
+                gsum = {k: gsum[k] + g[k] for k in gsum}
+                lsum = lsum + loss
+            grads = {k: g / microbatches for k, g in gsum.items()}
+            loss = lsum / microbatches
+        opt_state, gnorm = opt.update(grads, opt_state, params)
+        return opt_state, {"loss": loss, "grad_norm": gnorm,
+                           "step": opt_state.step}
+
+    return train_step

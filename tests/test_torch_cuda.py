@@ -220,6 +220,8 @@ NEW_HEAD_DIM_SHAPES = [
     (2, 32, 32, 2048, 2048, 112, True),  # zamba2-7b's shared block
     (2, 40, 40, 2048, 2048, 96, True),   # minicpm3-4b's MLA prefill
     (2, 16, 16, 2048, 2048, 64, True),   # seamless-m4t's decoder self-attn
+    (2, 36, 4, 2048, 2048, 128, True),   # starcoder2-7b: 9 heads a KV head
+    (2, 96, 8, 2048, 2048, 192, True),   # nemotron-4-340b: 12 a KV head
 ]
 
 
@@ -252,6 +254,8 @@ F64_SHAPES = [
     (1, 8, 2, 256, 256, 128),
     (1, 4, 4, 256, 256, 192),
     (1, 16, 16, 512, 512, 64),   # seamless-m4t's 16 heads of 64
+    (2, 36, 4, 2048, 2048, 128),  # starcoder2-7b's GQA at its B 2 x 2048
+    (2, 96, 8, 2048, 2048, 192),  # nemotron-4-340b's
 ]
 
 
@@ -740,3 +744,68 @@ def test_replicas_on_card_equal_cpu(cuda_device):
         for k, v in metrics.items():
             if k != "place_time_s":
                 assert np.array_equal(got.metrics[pol][k], v), (pol, k)
+
+
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One step of ``make_train_step`` on reduced smollm-135m (B 2 x 64,
+    the plain attention, no kernel) on the card, held to the same step
+    on the CPU within 1e-5: the loss, the gradient norm, every gradient
+    of the same weights, and every parameter after the step but those
+    whose clipped gradient g' is within 100 eps of 0.  There AdamW's
+    normalised step g' / (|g'| + eps) turns a rounding difference of g'
+    into any share of the step, so such a parameter is held to twice the
+    step's size, 2 lr, instead."""
+    from repro_torch import interop
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import loss_fn, make_train_step
+
+    cfg = reduced(get_arch("smollm-135m"))
+    weights = interop.seeded_params(cfg, seed=0)
+    batch = SyntheticDataset(cfg.vocab, 64, 2, seed=0).batch(0)
+    opt = AdamW(lr=1e-3, warmup_steps=1)
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = interop.model_params(cfg, weights, device=dev)
+        ps = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss_fn(model, batch), list(ps.values()))
+        reset_launches()
+        _, m = make_train_step(cfg, opt)(model, opt.init(model), batch)
+        assert sum(LAUNCHES.values()) == 0
+        out.append((float(m["loss"]), float(m["grad_norm"]),
+                    {k: g.cpu() for k, g in zip(ps, grads)},
+                    {k: t.detach().cpu() for k, t in ps.items()}))
+    (loss, gnorm, grads, params), (c_loss, c_gnorm, c_grads, c_params) = out
+    assert c_loss == pytest.approx(loss, rel=1e-5)
+    assert c_gnorm == pytest.approx(gnorm, rel=1e-5)
+    scale = min(1.0, opt.grad_clip / (gnorm + 1e-9))
+    for k, t in params.items():
+        torch.testing.assert_close(c_grads[k], grads[k], atol=1e-5,
+                                   rtol=1e-5)
+        near = (grads[k] * scale).abs() < 100 * opt.eps
+        torch.testing.assert_close(c_params[k][~near], t[~near], atol=1e-5,
+                                   rtol=1e-5)
+        assert bool(((c_params[k] - t)[near].abs() <= 2 * opt.lr).all())
+
+
+@pytest.mark.parametrize("arch,S,kernel", [
+    ("mamba2-2.7b", 64, "ssd_scan"),            # every mamba2 layer
+    ("smollm-135m", 2048, "flash_attention"),   # the flash branch
+])
+def test_train_step_refuses_forward_only_kernel(cuda_device, arch, S,
+                                                kernel):
+    """A train step that reaches a forward-only CUDA kernel under grad
+    raises from that kernel's wrapper: no plain-version fallback."""
+    from pathlib import Path
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = reduced(get_arch(arch))
+    model = M.init(cfg, seed=0, device=cuda_device)
+    opt = AdamW()
+    batch = SyntheticDataset(cfg.vocab, S, 1, seed=0).batch(0)
+    with pytest.raises(NotImplementedError, match="forward-only") as info:
+        make_train_step(cfg, opt)(model, opt.init(model), batch)
+    assert Path(str(info.traceback[-1].path)).parts[-3:] \
+        == ("kernels", kernel, "ops.py")

@@ -52,6 +52,8 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.models.model, repro_torch.models.ssm\n"
         "import repro_torch.serve.decode, repro_torch.serve.kvcache\n"
         "import repro_torch.launch.serve, repro_torch.train.data\n"
+        "import repro_torch.launch.train, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
         "import repro_torch.configs.registry\n"
         "import repro_torch.workloads\n"
         "import repro_torch.sim.scenarios, repro_torch.sim.batchsim\n"
@@ -189,7 +191,7 @@ def test_interop_round_trip():
     "Transformer", "init", "init_cache", "serve_main", "extra_inputs",
     "Transformer-mamba2", "init_cache-mamba2", "Transformer-vlm",
     "Transformer-encdec", "init_cache-vlm", "init_cache-encdec",
-    "serve_main-vlm", "serve_main-encdec"])
+    "serve_main-vlm", "serve_main-encdec", "train_main"])
 def test_model_entry_points_target_the_card(monkeypatch, entry):
     """The model, its caches and the serve driver are made on ``cuda``
     unless the caller asks for the CPU: without a GPU they raise, and
@@ -197,7 +199,7 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import backend
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model
     from repro_torch.serve.kvcache import init_cache
     from repro_torch.train.data import extra_inputs
@@ -227,6 +229,7 @@ def test_model_entry_points_target_the_card(monkeypatch, entry):
         "serve_main-encdec": lambda: serve.main([
             "--arch", "seamless-m4t-large-v2", "--reduced", "--gen", "1",
             "--prompt-len", "2"]),
+        "train_main": lambda: train.main(["--reduced", "--steps", "1"]),
     }
     with pytest.raises(backend.BackendUnavailableError):
         calls[entry]()

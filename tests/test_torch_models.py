@@ -185,6 +185,15 @@ def test_forward_gelu_matches_reference():
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("S", [64, FLASH_MIN_SEQ])
+def test_forward_relu2_matches_reference(S):
+    """nemotron-4-340b's squared-ReLU MLP and untied unembedding, through
+    the plain attention branch (S = 64) and the flash branch (S = 2048)."""
+    got, want = _forward_both("nemotron-4-340b", S)
+    assert got.shape == want.shape == (2, S, 256)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
 def test_expected_forward_is_the_reference():
     """``chip_smoke.py`` holds the card's full-width smollm-135m forward
     (30 layers, 2048 tokens, two rows) to ``EXPECTED_FORWARD``.  Those
