@@ -100,11 +100,20 @@ toolkit.  The script
    cross-attention's plain), held to its plain-version forward, 8 decode
    steps on the cross cache ``encode`` and ``prefill_cross_cache``
    build, and the serve driver;
-7d. trains on the card (the ``train`` phases), where the forward reaches
-   no kernel under grad (below ``FLASH_MIN_SEQ``; no SSM layer): the
-   full-width smollm-135m on NumPy-seeded weights, three steps of
-   ``make_train_step`` at B 2 x 256, each step's loss and gradient norm
-   held to the reference package's (``EXPECTED_TRAIN``, by
+7d. holds the backward kernels (``kernel/flash_attention_bwd``,
+   ``kernel/ssd_scan_bwd``): dq, dk, dv at smollm-135m's B 2 x 4096 and
+   the five model shapes at B 2 x 2048 in float32 (Dh 64, 96, 112, 128,
+   192) and at Dh 64 and 128 in bfloat16, and the SSD's four gradients
+   (with a nonzero final-state gradient) at mamba2's and zamba2's
+   B 2 x 2048 in both types, each against the plain version's autograd
+   gradients run in float64, at most twice as far as the same-dtype
+   plain version's; two backwards bit-identical; the backward alone timed
+   beside the plain version's backward and, for flash,
+   ``F.scaled_dot_product_attention``'s;
+7e. trains on the card (the ``train`` phases): the full-width smollm-135m
+   on NumPy-seeded weights, three steps of ``make_train_step`` at B 2 x
+   256 (no kernel below ``FLASH_MIN_SEQ``), each step's loss and gradient
+   norm held to the reference package's (``EXPECTED_TRAIN``, by
    ``train_agrees``); the same model at B 8 x 1024 for 20 steps (the
    loss must fall; step time, tokens/s, peak memory, one step profiled
    and one counting its host syncs), with a checkpoint after 10 steps
@@ -113,10 +122,19 @@ toolkit.  The script
    for that step); ``launch/train.py`` for 20 steps with a checkpoint
    every 10, then ``--resume`` to 30; deepseek-v2-lite-16b cut to 2
    layers at full width (MLA and MoE under grad, 1.085 B parameters),
-   5 steps at B 2 x 1024 with finite gradients and a falling loss; and a
-   train step on reduced mamba2 and on smollm at 2048 tokens, each of
-   which must raise ``NotImplementedError`` from the forward-only
-   ``ssd_scan`` or ``flash_attention`` wrapper;
+   5 steps at B 2 x 1024 with finite gradients and a falling loss; then
+   the cells through the backward kernels, each step launching one
+   forward and one backward kernel a layer that reaches it:
+   mamba2-2.7b cut to 2 layers and smollm-135m at B 1 x 2048, three
+   steps each held to the reference's (``EXPECTED_TRAIN_MAMBA2``,
+   ``EXPECTED_TRAIN_S2048``); mamba2-2.7b cut to 16 layers (0.90 B
+   parameters) at B 2 x 2048 for 10 steps, zamba2-7b cut to 7 layers at
+   B 1 x 2048 for 5, and smollm-135m at B 2 x 4096 for 10, each with a
+   falling loss, step 1 held to the same step through the plain versions
+   (``train_agrees``), step time, tokens/s, peak memory and one step
+   profiled for the device's idle share and the backward kernels' share
+   (the kernels alone, and each ``_backward`` between CUDA events, the
+   ``ssd_scan`` states' recompute in it);
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -142,7 +160,7 @@ toolkit.  The script
    the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
    guest must launch ``swap_select``.
 
-Steps 5 to 7d run between steps 2 and 3; ``ssd_scan`` and the new shapes
+Steps 5 to 7e run between steps 2 and 3; ``ssd_scan`` and the new shapes
 of steps 6a to 7c are checked with the other model kernels in step 5.  Each phase
 prints one JSON line.  Then come the kernel summary line, the card's name
 and power limit, and, only when every phase passed, the final
@@ -435,22 +453,57 @@ def train_agrees(got, expected=EXPECTED_TRAIN, spread=TRAIN_SPREAD) -> bool:
         for g, e in zip(gs, es))
 
 
-def held_train_steps(model) -> list:
-    """The held training steps on ``model`` (smollm-135m on its seeded
-    weights, on any device): [loss, grad_norm] of each step."""
+def held_train_steps(model, batch: int = TRAIN_HELD_BATCH,
+                     seq: int = TRAIN_HELD_SEQ,
+                     steps: int = len(EXPECTED_TRAIN)) -> list:
+    """The held training steps on ``model`` (a model on its seeded
+    weights, on any device): ``steps`` steps of ``make_train_step`` with
+    AdamW(**TRAIN_HELD_OPT), step i on ``SyntheticDataset(vocab, seq,
+    batch, seed=0).batch(i)``; [loss, grad_norm] of each step."""
     from repro_torch.train.data import SyntheticDataset
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import make_train_step
 
     opt = AdamW(**TRAIN_HELD_OPT)
     step, state = make_train_step(model.cfg, opt), opt.init(model)
-    ds = SyntheticDataset(model.cfg.vocab, TRAIN_HELD_SEQ, TRAIN_HELD_BATCH,
-                          seed=0)
+    ds = SyntheticDataset(model.cfg.vocab, seq, batch, seed=0)
     out = []
-    for i in range(len(EXPECTED_TRAIN)):
+    for i in range(steps):
         state, m = step(model, state, ds.batch(i))
         out.append([float(m["loss"]), float(m["grad_norm"])])
     return out
+
+
+# The held cells through the backward kernels, each [loss, grad_norm] of
+# three steps as EXPECTED_TRAIN's are taken, from the reference package's
+# make_train_step on the CPU, and each one's float32 spread as
+# TRAIN_SPREAD's is measured.  mamba2-2.7b at full width cut to 2 layers
+# (interop.seeded_params(seed=0), the weights of forward-256-L2), B 2 x 256:
+# every layer's SSD through ssd_scan and its backward.  Recomputed by
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -m pytest -q \
+#       tests/test_torch_backward_expected.py
+EXPECTED_TRAIN_MAMBA2 = [
+    [11.377680778503418, 9.774716258463426],
+    [11.258695602416992, 7.6909804791063525],
+    [11.333414077758789, 6.341254246917823],
+]
+TRAIN_SPREAD_MAMBA2 = [8.4e-8, 1.1e-6, 9.6e-6]
+# smollm-135m at full width and depth on the weights of
+# train/smollm-135m/held, B 1 x 2048: every layer's attention through the
+# flash kernel and its backward (the reference: flash_attention_ref under
+# jax.grad).  Recomputed by tests/test_torch_backward_s2048.py.
+TRAIN_S2048_SEQ = 2048
+EXPECTED_TRAIN_S2048 = [
+    [10.913718223571777, 12.504095233706138],
+    [10.919633865356445, 3.0842525241471477],
+    [10.964717864990234, 2.023598864134197],
+]
+# at lr 1e-2 the second step's update moves every weight whose gradient
+# rounding decides by the full lr, and over 2048 tokens the third step's
+# gradient norm lands 1.1e-2 apart at one and at eight threads; measured by
+#   PYTHONPATH=src python3 tools/train_spread.py \
+#       --cell smollm-135m/held-S2048
+TRAIN_SPREAD_S2048 = [6.3e-7, 6.7e-5, 1.1e-2]
 
 
 def seeded_source(shape: tuple, seed: int = 0):
@@ -486,6 +539,17 @@ KERNELS = {
     "ssd_scan": dict(
         source="src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:75"),
+    # the backward kernels: gradients of the TPU kernels at `replaces`,
+    # which define none (the reference trains through their plain versions)
+    "flash_attention_bwd": dict(
+        source="src/repro_torch/kernels/flash_attention/"
+               "flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:81",
+        twin="none: the backward of the kernel at replaces"),
+    "ssd_scan_bwd": dict(
+        source="src/repro_torch/kernels/ssd_scan/ssd_scan_bwd.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:75",
+        twin="none: the backward of the kernel at replaces"),
 }
 
 
@@ -841,7 +905,11 @@ def profiled(run, key: str, spans=()) -> dict:
                        and e.device_type == DeviceType.CPU) / 1e6
             for label in sorted(labels)}
         for part, test in (("flash_attention", lambda k: "flash" in k),
-                           ("gemm", lambda k: "gemm" in k.lower())):
+                           ("gemm", lambda k: "gemm" in k.lower()),
+                           ("flash_attention_bwd", lambda k: any(
+                               n in k for n in FLASH_BWD_KERNEL_NAMES)),
+                           ("ssd_scan_bwd", lambda k: any(
+                               n in k for n in SSD_BWD_KERNEL_NAMES))):
             extra[f"{part}_device_s"] = sum(
                 e.self_device_time_total for e in dev_events
                 if test(e.key)) / 1e6
@@ -855,6 +923,12 @@ def profiled(run, key: str, spans=()) -> dict:
             "device_ops": sum(e.count for e in dev_events),
             "command_buffer_full_s": sum(e.self_device_time_total
                                          for e in stalls) / 1e6, **extra}
+
+
+# the CUDA kernels each backward launches, by name in a profiler trace
+FLASH_BWD_KERNEL_NAMES = ("row_stats_kernel", "dkdv_kernel", "dq_kernel")
+SSD_BWD_KERNEL_NAMES = ("state_grad_kernel", "tile_grad_kernel",
+                        "group_sum_kernel")
 
 
 @contextlib.contextmanager
@@ -1690,6 +1764,235 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
     return rec
 
 
+# the backward kernels' phases: flash_attention_bwd at smollm-135m's B 2 x
+# 4096 (the summary line's record) and the five model shapes at B 2 x 2048
+# in float32 (smollm, minicpm3, zamba2, phi3.5, deepseek), at Dh 64 and 128
+# in bfloat16; ssd_scan_bwd at mamba2's and zamba2's B 2 x 2048 in both
+# types
+FLASH_S4096 = (2, 9, 3, 4096, 4096, 64)    # train/smollm-135m/S4096's
+FLASH_BWD_SHAPES = {"float32": (FLASH_S4096, FLASH_MAIN, FLASH_MINICPM3,
+                                FLASH_ZAMBA2, FLASH_PHI35, FLASH_DSV2),
+                    "bfloat16": (FLASH_MAIN, FLASH_PHI35)}
+SSD_BWD_SHAPES = (SSD_MAIN, SSD_ZAMBA2)
+
+
+def grad_errors(got, plain, exact, names) -> dict:
+    """Each gradient's largest error against ``exact`` (float64), as a
+    share of that gradient's largest magnitude, for the kernel (``got``)
+    and the same-dtype plain version (``plain``)."""
+    out = {}
+    for name, g, p, e in zip(names, got, plain, exact):
+        scale = float(e.abs().max()) or 1.0
+        out[name] = {"kernel": float((g.double() - e).abs().max()) / scale,
+                     "plain": float((p.double() - e).abs().max()) / scale}
+    return out
+
+
+def within_twice_plain(errs: dict) -> bool:
+    """The backward's accuracy rule: every gradient's error at most twice
+    the same-dtype plain version's (the f32 forward's rule in check_flash)."""
+    return all(e["kernel"] <= 2 * e["plain"] for e in errs.values())
+
+
+def backward_ms(run) -> float:
+    """Device ms of ``run()``, a backward over a retained graph."""
+    return cuda_ms(run, reps=5, trials=3, warmup=1, strict=False)[0]
+
+
+def check_flash_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
+    """flash_attention's backward kernels (causal) at ``shape``: dq, dk and
+    dv against the plain version's autograd gradients run in float64, each
+    at most twice as far from them as the same-dtype plain version's; two
+    backwards bit-identical; the backward alone timed (the kernels on the
+    forward's saved tensors) beside the plain version's backward and
+    F.scaled_dot_product_attention's (one forward with its graph
+    retained, the backward timed).  The work is 2.5x the causal forward's
+    products; float32 records carry two bounds, as the forward's do:
+    ``bound_ms`` (= ``bound_tc_ms``) at 3xTF32 on the tensor cores and
+    ``bound_cuda_core_ms`` at the CUDA cores' float32 rate, which the
+    kernel runs on."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, H, Hkv, Sq, Sk, Dh = shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(_tdtype(dt))
+               for s in ((B, H, Sq, Dh), (B, Hkv, Sk, Dh), (B, Hkv, Sk, Dh)))
+    dout = torch.randn((B, H, Sq, Dh), generator=g, device=dev).to(q.dtype)
+
+    def grads(fn, *ins):
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        return out, leaves, torch.autograd.grad(out, leaves,
+                                                dout.to(out.dtype),
+                                                retain_graph=True)
+
+    kernel = lambda *t: ops.flash_attention(*t, causal=True, impl="kernel")
+    plain = lambda *t: flash_attention_ref(*t, causal=True)
+    _, _, got = grads(kernel, q, k, v)
+    _, _, again = grads(kernel, q, k, v)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    del again
+    _, _, want = grads(plain, q, k, v)
+    _, _, exact = grads(plain, q.double(), k.double(), v.double())
+    torch.cuda.synchronize()
+    errs = grad_errors(got, want, exact, ("dq", "dk", "dv"))
+    del got, want, exact
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        _, lse = ops._forward(q, k, v, True, with_lse=True)
+    ms, host, _ = cuda_ms(lambda: ops._backward(q, k, v, lse, dout, True),
+                          reps=5, trials=3)
+    del lse
+    o_p, leaves, _ = grads(plain, q, k, v)
+    plain_ms = backward_ms(lambda: torch.autograd.grad(
+        o_p, leaves, dout, retain_graph=True))
+    del o_p, leaves
+    torch.cuda.empty_cache()
+    o_l, leaves, _ = grads(lambda *t: F.scaled_dot_product_attention(
+        *t, is_causal=True, enable_gqa=True), q, k, v)
+    library = backward_ms(lambda: torch.autograd.grad(
+        o_l, leaves, dout, retain_graph=True))
+    del o_l, leaves
+    torch.cuda.empty_cache()
+    pairs = sum(max(0, min(Sk, i + 1 + Sk - Sq)) for i in range(Sq))
+    size = q.element_size()
+    # q, dO, dq and k, v, dk, dv once each, and the log-sum-exp
+    nbytes = (3 * B * H * Sq * Dh + 4 * B * Hkv * Sk * Dh) * size \
+        + B * H * Sq * 4
+    ops_n = 2.5 * 4.0 * Dh * pairs * B * H
+    rec = _record(max(e["kernel"] for e in errs.values()), ms, host,
+                  plain_ms, False, library, nbytes, ops_n, dt)
+    rec["bound_cuda_core_ms"] = bound_ms(nbytes, ops_n, "float32")[0]
+    if dt == "float32":
+        # as the forward's (check_flash): float32-accurate products as
+        # 3xTF32 on the tensor cores are the least time the card could take
+        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 3 * ops_n,
+                                                    "tf32")
+        rec["bound_tc_ms"] = rec["bound_ms"]
+    rec["ms_over_library"] = ms / library
+    rec["shape"] = list(shape)
+    ok = within_twice_plain(errs) and same
+    emit({"phase": tag, "kernel": "flash_attention_bwd", "dtype": dt,
+          "causal": True, "rel_err_f64": errs, "bit_identical": same,
+          "ok": ok, **rec})
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd at {shape} {dt}: "
+                             f"errors {errs}, bit-identical {same}")
+    return rec
+
+
+def ssd_bwd_ops(B, H, G, S, P, N) -> float:
+    """The least operations of the SSD scan's gradient at this shape, as
+    ``ssd_ops`` counts the forward's: per (b, group, tile) the lower
+    triangle of C B^T (N each), per (b, h, tile) dy x^T, dx's and dB's
+    and dC's in-tile products (the triangle, P or N each), the four state
+    products g B^T, x g, dy h and the state gradient's update (Q P N each)
+    with its decay (P N), and the forward's chunk states again (Q P N);
+    two operations per multiply-add, the least over the tiles 1 to 64
+    that divide S."""
+    def at(Q):
+        n, tri = S // Q, Q * (Q + 1) // 2
+        return 2.0 * B * G * n * tri * N \
+            + B * H * n * (2.0 * tri * (2 * P + 2 * N) + 10 * Q * P * N
+                           + 2 * P * N)
+    return min(at(Q) for Q in (1, 2, 4, 8, 16, 32, 64) if S % Q == 0)
+
+
+def check_ssd_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
+    """ssd_scan's backward kernels at ``shape``: the gradients of xdt, dA,
+    B and C, with a nonzero gradient of the final state, against the
+    chunked plain version's autograd run in float64, each at most twice
+    as far from it as the same-dtype plain version's; two backwards
+    bit-identical; the backward alone timed beside the plain version's.
+    No PyTorch call computes it (library_ms null)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_folded
+
+    B, H, G, S, P, N, chunk = shape
+    g = torch.Generator(device=dev).manual_seed(4)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)
+    tdt = _tdtype(dt)
+    xdt = (rand(B, H, S, P) * 0.5).to(tdt)
+    dA = (-F.softplus(rand(B, H, S)) * 0.5).to(tdt)
+    Bm, Cm = ((rand(B, G, S, N) * 0.5).to(tdt) for _ in range(2))
+    dy = rand(B, H, S, P).to(tdt)
+    dst = rand(B, H, P, N)
+    ins = (xdt, dA, Bm, Cm)
+
+    def grads(fn, *args):
+        leaves = [t.detach().requires_grad_(True) for t in args]
+        y, st = fn(*leaves)
+        return (y, st), leaves, torch.autograd.grad(
+            (y, st), leaves, (dy.to(y.dtype), dst.to(st.dtype)),
+            retain_graph=True)
+
+    kernel = lambda *t: ops.ssd_scan_kernel(*t, chunk=chunk, impl="kernel")
+    plain = lambda *t: ssd_chunked_folded(*t, chunk)
+    _, _, got = grads(kernel, *ins)
+    _, _, again = grads(kernel, *ins)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    del again
+    _, _, want = grads(plain, *ins)
+    _, _, exact = grads(plain, *(t.double() for t in ins))
+    torch.cuda.synchronize()
+    errs = grad_errors(got, want, exact, ("dxdt", "ddA", "dB", "dC"))
+    del got, want, exact
+    torch.cuda.empty_cache()
+
+    ms, host, _ = cuda_ms(lambda: ops._backward(*ins, dy, dst, chunk),
+                          reps=5, trials=3)
+    outs, leaves, _ = grads(plain, *ins)
+    plain_ms = backward_ms(lambda: torch.autograd.grad(
+        outs, leaves, (dy, dst), retain_graph=True))
+    del outs, leaves
+    torch.cuda.empty_cache()
+    size = xdt.element_size()
+    # xdt, dy and dxdt; B, C, dB and dC; dA and ddA; the final state's
+    # gradient (float32), each once
+    nbytes = (3 * B * H * S * P + 4 * B * G * S * N) * size \
+        + 2 * B * H * S * dA.element_size() + B * H * P * N * 4
+    rec = _record(max(e["kernel"] for e in errs.values()), ms, host,
+                  plain_ms, False, None, nbytes,
+                  ssd_bwd_ops(B, H, G, S, P, N), dt)
+    rec["bound_cuda_core_ms"] = bound_ms(
+        nbytes, ssd_bwd_ops(B, H, G, S, P, N), "float32")[0]
+    rec["shape"] = list(shape)
+    ok = within_twice_plain(errs) and same
+    emit({"phase": tag, "kernel": "ssd_scan_bwd", "dtype": dt,
+          "rel_err_f64": errs, "bit_identical": same, "ok": ok, **rec})
+    if not ok:
+        raise AssertionError(f"ssd_scan_bwd at {shape} {dt}: errors "
+                             f"{errs}, bit-identical {same}")
+    return rec
+
+
+def backward_kernel_phase(dev) -> dict:
+    """kernel/flash_attention_bwd and kernel/ssd_scan_bwd.  Returns the
+    float32 records by kernel and shape, for the summary line."""
+    import torch
+    recs = {"flash_attention_bwd": {}, "ssd_scan_bwd": {}}
+    for dt, shapes in FLASH_BWD_SHAPES.items():
+        for shape in shapes:
+            rec = check_flash_bwd(dev, dt, shape,
+                                  "kernel/flash_attention_bwd")
+            if dt == "float32":
+                recs["flash_attention_bwd"][shape] = rec
+            torch.cuda.empty_cache()
+    for dt in ("float32", "bfloat16"):
+        for shape in SSD_BWD_SHAPES:
+            rec = check_ssd_bwd(dev, dt, shape, "kernel/ssd_scan_bwd")
+            if dt == "float32":
+                recs["ssd_scan_bwd"][shape] = rec
+            torch.cuda.empty_cache()
+    return recs
+
+
 def model_kernel_phase(dev) -> dict:
     """The model-stack kernels against their plain versions.  Returns the
     float32 records (the model phases run float32) by kernel and shape;
@@ -2390,6 +2693,14 @@ TRAIN_OPT = {"lr": 3e-4, "warmup_steps": 10}
 # steps)
 DSV2_TRAIN_B, DSV2_TRAIN_S, DSV2_TRAIN_STEPS = 2, 1024, 5
 DSV2_TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 10}
+# The cells through the backward kernels.  mamba2-2.7b at full width, cut
+# to 16 of its 64 layers (0.90 B parameters): parameters, gradients and
+# the two AdamW moments take 14.4 GB and each layer's activations about
+# 0.4 GB a sequence, so all 64 layers at B 1 would need about 71 GB of the
+# card's 80.  smollm-135m at the reference's train_4k sequence (4096
+# tokens; its global batch of 256 sequences is a pod's) at B 2.
+MAMBA2_TRAIN_DEPTH = 16
+TRAIN_4K_BATCH = 2
 
 
 @contextlib.contextmanager
@@ -2447,6 +2758,37 @@ def train_flops(cfg, B: int, S: int) -> float:
         + 12.0 * B * cfg.n_heads * S * S * cfg.head_dim_ * cfg.n_layers
 
 
+def backward_device_s(run) -> dict:
+    """``run()`` once more with each backward's ``_backward`` between two
+    CUDA events; the device seconds between them, summed over the run by
+    kernel: the backward kernels and all else ``_backward`` launches, the
+    ``ssd_scan`` states recomputed by the forward's stages 1-2 among it.
+    The step runs on one stream, so nothing else lies between the two."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    events = {"flash_attention_bwd": [], "ssd_scan_bwd": []}
+
+    def between_events(name, fn):
+        def wrapper(*args, **kwargs):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = fn(*args, **kwargs)
+            b.record()
+            events[name].append((a, b))
+            return out
+        return wrapper
+
+    with patched(flash_ops, "_backward",
+                 lambda f: between_events("flash_attention_bwd", f)), \
+            patched(ssd_ops, "_backward",
+                    lambda f: between_events("ssd_scan_bwd", f)):
+        run()
+        torch.cuda.synchronize()
+    return {name: sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+            for name, pairs in events.items()}
+
+
 def timed_steps(step, model, state, batches):
     """``step`` on each batch; returns (state, metrics of each step, wall
     s of each step, each ending in a device synchronise)."""
@@ -2461,31 +2803,145 @@ def timed_steps(step, model, state, batches):
     return state, metrics, secs
 
 
-def train_held_phase(dev) -> None:
-    """train/smollm-135m/held: the three held steps on the card, each
-    step's loss and grad_norm held to ``EXPECTED_TRAIN`` by
-    ``train_agrees``."""
+def train_held_cell(dev, arch: str, over: dict, batch: int, seq: int,
+                    expected, spread, tag: str = "") -> None:
+    """train/<arch>/held<tag>: ``arch`` at full width (its depth cut as
+    ``over`` says) on ``interop.seeded_params(seed=0)`` weights, the held
+    steps at ``batch`` x ``seq`` on the card, each step's loss and
+    grad_norm held to ``expected`` (the reference's) by ``train_agrees``
+    with ``spread``, the float32 spread measured on the CPU; each step's
+    forward and backward launch every kernel the forward reaches (its
+    backward too) once a layer."""
+    import dataclasses
     from repro_torch import interop
     from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import reset_launches
 
-    cfg = get_arch("smollm-135m")
+    cfg = dataclasses.replace(get_arch(arch), **over)
+    key = f"train/{arch}/held{tag}"
     model = interop.model_params(cfg, interop.seeded_params(cfg, seed=0),
                                  device=dev)
+    want = train_launches(cfg, seq, len(expected))
+    reset_launches()
     t0 = time.perf_counter()
-    got = held_train_steps(model)
+    got = held_train_steps(model, batch, seq, len(expected))
     wall = time.perf_counter() - t0
-    ok = train_agrees(got)
-    emit({"phase": "train/smollm-135m/held", "batch": TRAIN_HELD_BATCH,
-          "seq": TRAIN_HELD_SEQ, "layers": cfg.n_layers,
-          "opt": TRAIN_HELD_OPT, "s": wall, "got": got,
-          "expected": EXPECTED_TRAIN,
+    launches = _count_path(tuple(want)) if want else {}
+    ok = train_agrees(got, expected, spread) and launches == want
+    emit({"phase": key, "batch": batch, "seq": seq,
+          "layers": cfg.n_layers, "opt": TRAIN_HELD_OPT, "s": wall,
+          "got": got, "expected": expected,
           "rel_err": [[abs(g - e) / abs(e) for g, e in zip(gs, es)]
-                      for gs, es in zip(got, EXPECTED_TRAIN)],
-          "allowed_rtol": [max(1e-4, FLOOR_FACTOR * s)
-                           for s in TRAIN_SPREAD], "ok": ok})
+                      for gs, es in zip(got, expected)],
+          "allowed_rtol": [max(1e-4, FLOOR_FACTOR * x) for x in spread],
+          "launches": launches, "ok": ok})
     if not ok:
-        raise AssertionError("the held smollm-135m train steps disagree "
-                             "with the reference")
+        raise AssertionError(f"the held {arch} train steps disagree with "
+                             f"the reference or missed a kernel")
+
+
+def train_launches(cfg, S: int, steps: int) -> dict:
+    """Launches ``steps`` train steps of ``cfg`` on S tokens make: each
+    forward's (``per_forward_launches``), and one backward launch for each
+    forward one."""
+    fwd = per_forward_launches(cfg, S)
+    return {**{k: n * steps for k, n in fwd.items()},
+            **{f"{k}_bwd": n * steps for k, n in fwd.items()}}
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every model forward inside the block runs the kernels' plain
+    versions (``impl="ref"``), also under a train step that does not pass
+    ``impl``."""
+    from repro_torch.models import model as M
+    with patched(M.Transformer, "forward",
+                 lambda f: lambda self, *a, **kw: f(self, *a, **kw,
+                                                    impl="ref")):
+        yield
+
+
+def train_kernel_cell(dev, arch: str, over: dict, B: int, S: int,
+                      steps: int, opt_kw: dict, tag: str) -> None:
+    """train/<arch>/<tag>: ``arch`` at full width (depth cut as ``over``
+    says), weights drawn on the card, ``steps`` train steps at B x S
+    through the kernels' forwards and backwards.  Held: every step's
+    launches of each kernel the forward reaches and of its backward (one
+    a layer), finite losses and gradient norms, a falling loss (the mean
+    of the last five steps below that of the first five; the last below
+    the first with fewer than ten steps), and step 1 to the same step on
+    the same weights with the plain versions on the card
+    (``train_agrees``, rtol 1e-4).  Recorded: step ms, tokens/s, peak
+    memory, and one more step profiled for the device's idle share and the
+    backward kernels' share of its busy time (``bwd_kernel_share``); then
+    one more with each ``_backward`` between CUDA events
+    (``backward_device_s``), its device time over that busy time
+    (``bwd_share``), the ``ssd_scan`` states' recompute included."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_arch(arch), **over)
+    key = f"train/{arch}/{tag}"
+    ds = SyntheticDataset(cfg.vocab, S, B, seed=0)
+    batches = [ds.batch(i) for i in range(steps + 1)]
+    opt = AdamW(**opt_kw)
+    step = make_train_step(cfg, opt)
+    model = M.init(cfg, seed=0, device=dev)
+    with plain_versions():
+        _, m = step(model, opt.init(model), batches[0])
+    plain1 = [float(m["loss"]), float(m["grad_norm"])]
+    del model, m
+    torch.cuda.empty_cache()
+
+    model = M.init(cfg, seed=0, device=dev)
+    state = opt.init(model)
+    want = train_launches(cfg, S, steps)
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, secs = timed_steps(step, model, state, batches[:steps])
+    peak = torch.cuda.max_memory_allocated()
+    launches = _count_path(tuple(want))
+    losses = [float(x["loss"]) for x in metrics]
+    norms = [float(x["grad_norm"]) for x in metrics]
+    prof = profiled(lambda: step(model, state, batches[steps]), key,
+                    spans=train_spans())
+    bwd_s = backward_device_s(lambda: step(model, state, batches[steps]))
+    del model, state
+    warm = statistics.median(secs[1:])
+    busy = prof["device_busy_s"]
+    got1 = [losses[0], norms[0]]
+    falls = (statistics.mean(losses[-5:]) < statistics.mean(losses[:5])
+             if steps >= 10 else losses[-1] < losses[0])
+    rec = {"phase": key, "batch": B, "seq": S, "layers": cfg.n_layers,
+           "params": cfg.n_params, "opt": opt_kw, "steps": steps,
+           "losses": losses, "grad_norms": norms,
+           "step1": got1, "step1_plain": plain1,
+           "step1_rel_err": [abs(g - e) / abs(e)
+                             for g, e in zip(got1, plain1)],
+           "first_step_s": secs[0], "step_ms": warm * 1e3,
+           "step_ms_all": [x * 1e3 for x in secs],
+           "tokens_per_s": B * S / warm, "peak_mem_mb": peak / 2**20,
+           **prof,
+           "bwd_kernel_share": {
+               k: prof[f"{k}_device_s"] / busy if busy else None
+               for k in ("flash_attention_bwd", "ssd_scan_bwd")},
+           "bwd_device_s": bwd_s,
+           "bwd_share": {k: t / busy if busy else None
+                         for k, t in bwd_s.items()},
+           "launches": launches, "launches_expected": want}
+    rec["ok"] = (all(math.isfinite(x) for x in losses + norms) and falls
+                 and launches == want
+                 and train_agrees([got1], [plain1], [0.0]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"the {key} training cell failed its checks")
 
 
 def train_throughput_phase(dev) -> None:
@@ -2675,48 +3131,29 @@ def train_dsv2_phase(dev) -> None:
                              "its checks")
 
 
-def train_refuses_phase(dev) -> None:
-    """train/refuses: a train step that reaches a forward-only CUDA kernel
-    under grad must raise ``NotImplementedError`` from that kernel's
-    wrapper (reduced mamba2's ``ssd_scan``; smollm at 2048 tokens, the
-    flash branch); the phase passes only when both raise there."""
-    from repro_torch.configs.base import reduced
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.models import model as M
-    from repro_torch.train.data import SyntheticDataset
-    from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_step import make_train_step
-
-    cases = []
-    for arch, S, kernel in (("mamba2-2.7b", 64, "ssd_scan"),
-                            ("smollm-135m", 2048, "flash_attention")):
-        cfg = reduced(get_arch(arch))
-        model = M.init(cfg, seed=0, device=dev)
-        opt = AdamW()
-        batch = SyntheticDataset(cfg.vocab, S, 1, seed=0).batch(0)
-        where, message = None, None
-        try:
-            make_train_step(cfg, opt)(model, opt.init(model), batch)
-        except NotImplementedError as e:
-            where = traceback.extract_tb(e.__traceback__)[-1].filename
-            message = str(e)
-        wrapper = Path("kernels", kernel, "ops.py")
-        cases.append({"arch": cfg.name, "seq": S, "kernel": kernel,
-                      "raised_in": where, "message": message,
-                      "ok": where is not None
-                      and Path(where).parts[-3:] == wrapper.parts})
-    ok = all(c["ok"] for c in cases)
-    emit({"phase": "train/refuses", "cases": cases, "ok": ok})
-    if not ok:
-        raise AssertionError("a forward-only kernel did not refuse a train "
-                             "step")
-
-
-TRAIN_PHASES = (("held", train_held_phase),
-                ("B8-S1024", train_throughput_phase),
-                ("launch", lambda dev: train_launch_phase()),
-                ("deepseek-v2-lite-16b", train_dsv2_phase),
-                ("refuses", train_refuses_phase))
+TRAIN_PHASES = (
+    ("held", lambda dev: train_held_cell(
+        dev, "smollm-135m", {}, TRAIN_HELD_BATCH, TRAIN_HELD_SEQ,
+        EXPECTED_TRAIN, TRAIN_SPREAD)),
+    ("B8-S1024", train_throughput_phase),
+    ("launch", lambda dev: train_launch_phase()),
+    ("deepseek-v2-lite-16b", train_dsv2_phase),
+    ("mamba2-2.7b/held-L2", lambda dev: train_held_cell(
+        dev, "mamba2-2.7b", {"n_layers": 2}, TRAIN_HELD_BATCH,
+        TRAIN_HELD_SEQ, EXPECTED_TRAIN_MAMBA2, TRAIN_SPREAD_MAMBA2,
+        "-L2")),
+    ("smollm-135m/held-S2048", lambda dev: train_held_cell(
+        dev, "smollm-135m", {}, 1, TRAIN_S2048_SEQ, EXPECTED_TRAIN_S2048,
+        TRAIN_SPREAD_S2048, f"-S{TRAIN_S2048_SEQ}")),
+    ("mamba2-2.7b/L16", lambda dev: train_kernel_cell(
+        dev, "mamba2-2.7b", {"n_layers": MAMBA2_TRAIN_DEPTH}, 2, 2048, 10,
+        TRAIN_OPT, f"L{MAMBA2_TRAIN_DEPTH}")),
+    ("zamba2-7b/L7-S2048", lambda dev: train_kernel_cell(
+        dev, "zamba2-7b", {"n_layers": 7}, 1, 2048, 5, DSV2_TRAIN_OPT,
+        "L7-S2048")),
+    ("smollm-135m/S4096", lambda dev: train_kernel_cell(
+        dev, "smollm-135m", {}, TRAIN_4K_BATCH, 4096, 10, TRAIN_OPT,
+        "S4096")))
 
 
 # -------------------------------------------------------------------- main
@@ -2817,6 +3254,14 @@ def main() -> int:
             failed.append(arch)
         torch.cuda.empty_cache()
         emit({"phase": f"model/{arch}/done", "s": time.perf_counter() - t0})
+    try:
+        t0 = time.perf_counter()
+        model_recs.update(backward_kernel_phase(dev))
+        emit({"phase": "kernel/backward/done", "s": time.perf_counter() - t0})
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("kernel/backward")
+    torch.cuda.empty_cache()
     for name, phase in TRAIN_PHASES:
         t0 = time.perf_counter()
         try:
@@ -2861,14 +3306,17 @@ def main() -> int:
         rec = records.get(name) or main_shape_record(model_recs, name)
         summary.append({"name": name, "route": "cuda", **meta,
                         "launches": MAIN_PATH_LAUNCHES[name],
-                        "shape": MAIN_PATH_SHAPES[name],
+                        # the timed record's shape where it has one (the
+                        # backward kernels'), else the path's largest
+                        "shape": rec.get("shape", MAIN_PATH_SHAPES[name]),
                         "max_abs_err": rec.get("max_abs_err"),
                         "ms": rec.get("ms"), "host_ms": rec.get("host_ms"),
                         "plain_ms": rec.get("plain_ms"),
                         "bound_ms": rec.get("bound_ms"),
                         "bound_by": rec.get("bound_by"),
-                        **({"bound_cuda_core_ms": rec["bound_cuda_core_ms"]}
-                           if "bound_cuda_core_ms" in rec else {}),
+                        **{k: rec[k] for k in ("bound_tc_ms",
+                                               "bound_cuda_core_ms")
+                           if k in rec},
                         "library_ms": rec.get("library_ms")})
     emit({"kernels": summary})
     smi = subprocess.run(

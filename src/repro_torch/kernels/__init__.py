@@ -8,8 +8,12 @@ that the main path went through the kernels: zero the counts with
 :func:`reset_launches`, drive the path, read them back.  ``SHAPES`` keeps,
 beside each count, the largest shape the kernel was launched at since the
 last reset: (B, n) for ``swap_select``, (B, m, k) for the hop kernels,
-(n,) for ``swap_gain``, (B, H, Hkv, Sq, Sk, Dh) for ``flash_attention``,
-(rows, D) for ``rmsnorm`` and (B, H, G, S, P, N, chunk) for ``ssd_scan``.
+(n,) for ``swap_gain``, (B, H, Hkv, Sq, Sk, Dh) for ``flash_attention``
+and ``flash_attention_bwd``, (rows, D) for ``rmsnorm`` and (B, H, G, S,
+P, N, chunk) for ``ssd_scan`` and ``ssd_scan_bwd``.  The two ``_bwd``
+kernels are the backward passes of ``flash_attention`` and ``ssd_scan``
+(the ``autograd.Function`` classes of their wrappers launch them); each
+counts one launch a backward.
 
 Every wrapper chooses by the device of the tensors it is handed
 (:func:`use_kernel`): ``impl="auto"`` launches the CUDA kernel for tensors
@@ -24,7 +28,7 @@ import torch
 
 LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
             "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 SHAPES: dict = {name: None for name in LAUNCHES}
 
 

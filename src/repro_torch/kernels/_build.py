@@ -46,8 +46,10 @@ SOURCES = {
     "hop_dist": _PKG / "hop_dist" / "hop_dist.cu",
     "swap_gain": _PKG / "swap_gain" / "swap_select.cu",
     "flash_attention": _PKG / "flash_attention" / "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "flash_attention" / "flash_attention_bwd.cu",
     "rmsnorm": _PKG / "rmsnorm" / "rmsnorm.cu",
     "ssd_scan": _PKG / "ssd_scan" / "ssd_scan.cu",
+    "ssd_scan_bwd": _PKG / "ssd_scan" / "ssd_scan_bwd.cu",
 }
 
 NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",

@@ -130,8 +130,11 @@
 //   and blocks an SM holds (`flash_attention_resources`).
 //
 // Both are built for Dh 16 (the reduced test configs), 32, 64, 96, 112
-// (zamba2), 128, 192 and 256.  Dynamic shared memory above 48 KB is set with
-// cudaFuncSetAttribute.  Each entry point issues one launch.  The C entry
+// (zamba2), 128, 192 and 256.  Given a non-null `lse`, either instance
+// also writes each row's log-sum-exp in its epilogue, for the backward
+// (flash_attention_bwd.cu); the inference path passes null.  Dynamic
+// shared memory above 48 KB is set with cudaFuncSetAttribute.  Each entry
+// point issues one launch.  The C entry
 // points return the CUDA error code of the launch so the Python wrapper
 // raises on a refused launch; the kernel allocates nothing.  Both
 // instances read q, k, v in 16-byte pieces: their base addresses must be
@@ -231,12 +234,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// the natural log-sum-exp of a lane's two rows' scaled scores, from the
+// running max m (log2 domain) and the summed l: ln(2^m l) = (m + log2 l)
+// ln 2.  The four lanes of a row hold the same m and l; lane t4 0 writes.
+__device__ __forceinline__ void write_lse(float* lse, int row0, int Sq,
+                                          int t4, float m0, float l0,
+                                          float m1, float l1) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  if (t4 != 0) return;
+  if (row0 < Sq) lse[row0] = (m0 + log2f(l0)) * kLn2;
+  if (row0 + 8 < Sq) lse[row0 + 8] = (m1 + log2f(l1)) * kLn2;
+}
+
 template <int D>
 __global__ void __launch_bounds__(128)
     flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      int H, int Hkv, int Sq, int Sk, int causal,
-                      float scale_log2) {
+                      float* __restrict__ lse, int H, int Hkv, int Sq,
+                      int Sk, int causal, float scale_log2) {
   using C = Tc<D>;
   constexpr int BK = C::kBK, LD = C::kLd;
   constexpr int KD = D / 16;   // 16-wide steps over the head dim
@@ -412,6 +427,8 @@ __global__ void __launch_bounds__(128)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (lse != nullptr) write_lse(lse + static_cast<int64_t>(b * H + h) * Sq,
+                                row0, Sq, t4, m0, l0, m1, l1);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int c = 0; c < NO; ++c) {
@@ -489,8 +506,8 @@ template <int D>
 __global__ void __launch_bounds__(F32<D>::kThreads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int H, int Hkv, int Sq, int Sk, int causal,
-                     float scale_log2) {
+                     float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
+                     int causal, float scale_log2) {
   using C = F32<D>;
   constexpr int BK = C::kBK, LD = C::kLd, BQ = C::kRows, NT = C::kThreads;
   constexpr int KD = D / 8;    // 8-wide steps over the head dim
@@ -713,6 +730,8 @@ __global__ void __launch_bounds__(F32<D>::kThreads)
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (lse != nullptr) write_lse(lse + static_cast<int64_t>(b * H + h) * Sq,
+                                row0, Sq, t4, m0, l0, m1, l1);
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
 #pragma unroll
   for (int c = 0; c < NO; ++c) {
@@ -728,8 +747,8 @@ __global__ void __launch_bounds__(F32<D>::kThreads)
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int Hkv, int Sq, int Sk, int causal,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
                cudaStream_t stream) {
   const size_t smem = F32<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -741,14 +760,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
       1.4426950408889634 / sqrt(static_cast<double>(D)));
   flash_f32_kernel<D><<<grid, F32<D>::kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H, Hkv, Sq, Sk,
-      causal, scale_log2);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, Sq,
+      Sk, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int Hkv, int Sq, int Sk, int causal,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Hkv, int Sq, int Sk, int causal,
                 cudaStream_t stream) {
   const size_t smem = Tc<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -760,18 +779,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
       1.4426950408889634 / sqrt(static_cast<double>(D)));
   flash_bf16_kernel<D><<<grid, Tc<D>::kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, Hkv, Sq, Sk,
-      causal, scale_log2);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, Hkv, Sq,
+      Sk, causal, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(bool is_bf16, const void* q, const void* k, const void* v,
-           void* o, int B, int H, int Hkv, int Sq, int Sk, int causal,
-           cudaStream_t stream) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal,
+           void* o, float* lse, int B, int H, int Hkv, int Sq, int Sk,
+           int causal, cudaStream_t stream) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
                                   stream)
-                 : launch_f32<D>(q, k, v, o, B, H, Hkv, Sq, Sk, causal,
+                 : launch_f32<D>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, causal,
                                  stream);
 }
 
@@ -792,8 +811,8 @@ int with_head_dim(int64_t Dh, F&& f) {
 }
 
 int dispatch(bool is_bf16, const void* q, const void* k, const void* v,
-             void* o, int64_t B, int64_t H, int64_t Hkv, int64_t Sq,
-             int64_t Sk, int64_t Dh, int causal, void* stream) {
+             void* o, void* lse, int64_t B, int64_t H, int64_t Hkv,
+             int64_t Sq, int64_t Sk, int64_t Dh, int causal, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || Sk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -802,8 +821,9 @@ int dispatch(bool is_bf16, const void* q, const void* k, const void* v,
             hkv = static_cast<int>(Hkv), sq = static_cast<int>(Sq),
             sk = static_cast<int>(Sk);
   return with_head_dim(Dh, [&](auto d) {
-    return launch<decltype(d)::value>(is_bf16, q, k, v, o, b, h, hkv, sq, sk,
-                                      causal, s);
+    return launch<decltype(d)::value>(is_bf16, q, k, v, o,
+                                      static_cast<float*>(lse), b, h, hkv,
+                                      sq, sk, causal, s);
   });
 }
 
@@ -841,18 +861,23 @@ const char* error_string(int err) {
 }
 
 // q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh) -> o (B, H, Sq, Dh), contiguous,
-// one type.  causal: 0 or 1.
+// one type.  causal: 0 or 1.  lse: null, or float32 (B, H, Sq) that
+// receives each row's natural log-sum-exp of its scaled, masked scores
+// (what the backward in flash_attention_bwd.cu recomputes P from).
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int64_t B, int64_t H, int64_t Hkv, int64_t Sq,
-                        int64_t Sk, int64_t Dh, int causal, void* stream) {
-  return dispatch(false, q, k, v, o, B, H, Hkv, Sq, Sk, Dh, causal, stream);
+                        void* lse, int64_t B, int64_t H, int64_t Hkv,
+                        int64_t Sq, int64_t Sk, int64_t Dh, int causal,
+                        void* stream) {
+  return dispatch(false, q, k, v, o, lse, B, H, Hkv, Sq, Sk, Dh, causal,
+                  stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int64_t B, int64_t H, int64_t Hkv,
-                         int64_t Sq, int64_t Sk, int64_t Dh, int causal,
-                         void* stream) {
-  return dispatch(true, q, k, v, o, B, H, Hkv, Sq, Sk, Dh, causal, stream);
+                         void* o, void* lse, int64_t B, int64_t H,
+                         int64_t Hkv, int64_t Sq, int64_t Sk, int64_t Dh,
+                         int causal, void* stream) {
+  return dispatch(true, q, k, v, o, lse, B, H, Hkv, Sq, Sk, Dh, causal,
+                  stream);
 }
 
 // out[4]: dynamic shared memory bytes, registers a thread, local bytes a

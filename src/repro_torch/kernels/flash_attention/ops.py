@@ -1,9 +1,13 @@
 """flash_attention — the attention entry point, dispatched by tensor
 device (see :mod:`repro_torch.kernels` for ``impl``).
 
-The CUDA kernel (``flash_attention.cu``) is forward-only, as the TPU
-kernel is: for inputs that require grad (with grad enabled) the wrapper
-raises on a GPU rather than return an output that cannot backpropagate.
+Without grad the CUDA forward (``flash_attention.cu``) runs alone.  For
+inputs that require grad (with grad enabled) the call goes through
+:class:`_FlashAttention`, an ``autograd.Function`` whose forward launches
+the same kernel and also keeps each row's log-sum-exp, and whose backward
+launches the backward kernels (``flash_attention_bwd.cu``: a row pass,
+dK/dV, dQ).  The TPU kernel has no backward; the reference trains through
+its plain version, which is what the CPU path here differentiates.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from .. import _build, count_launch, launch, use_kernel
 from .ref import flash_attention_ref
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
-# the head dims the kernel is built for
+# the head dims the kernels are built for, forward and backward
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 192, 256)
 
 
@@ -24,11 +28,22 @@ def _lib() -> ctypes.CDLL:
     if not hasattr(lib, "_typed"):
         for name in ("flash_attention_f32", "flash_attention_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 4 + [_I64] * 6 + [ctypes.c_int, _P]
+            fn.argtypes = [_P] * 5 + [_I64] * 6 + [ctypes.c_int, _P]
             fn.restype = ctypes.c_int
         lib.flash_attention_resources.argtypes = [ctypes.c_int, _I64,
                                                   ctypes.POINTER(_I64)]
         lib.flash_attention_resources.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if not hasattr(lib, "_typed"):
+        for name in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 9 + [_I64] * 6 + [ctypes.c_int, _P]
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -60,21 +75,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "the CUDA flash-attention kernel is forward-only; run it under "
-            "torch.inference_mode() or torch.no_grad()")
-    # both instances copy 16-byte pieces: a view that starts off such a
-    # boundary is copied to fresh (aligned) memory first
-    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
-        memory_format=torch.contiguous_format) for t in (q, k, v))
+        if causal and Sq > Sk:
+            raise ValueError(f"causal attention with Sq {Sq} > Sk {Sk} "
+                             f"leaves rows that see no key: no gradient")
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal: bool, with_lse: bool):
+    """One launch of the forward kernel on checked inputs: (out, lse),
+    lse (B, H, Sq) float32, each row's natural log-sum-exp of its scaled,
+    masked scores, with ``with_lse``, else None."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q, k, v)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     lib = _lib()
     fn = (lib.flash_attention_f32 if q.dtype == torch.float32
           else lib.flash_attention_bf16)
     launch(lib, fn, "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-           v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, Dh, int(causal))
+           v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+           B, H, Hkv, Sq, Sk, Dh, int(causal))
     count_launch("flash_attention", (B, H, Hkv, Sq, Sk, Dh))
-    return out
+    return out, lse
+
+
+def _aligned(*ts):
+    """Contiguous tensors whose data starts on a 16-byte boundary (the
+    forward instances copy 16-byte pieces): a view that starts off one is
+    copied to fresh memory first."""
+    return tuple(t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in ts)
+
+
+def _backward(q, k, v, lse, dout, causal: bool):
+    """The three backward launches (row pass, dK/dV, dQ) on the forward's
+    inputs and log-sum-exp: (dq, dk, dv) in q's dtype."""
+    B, H, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    # each row's 1 / l and D, from the row pass
+    stats = torch.empty((B, H, Sq, 2), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    fn = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
+          else lib.flash_attention_bwd_bf16)
+    launch(lib, fn, "flash_attention_bwd", q.device, q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+           stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+           H, Hkv, Sq, Sk, Dh, int(causal))
+    count_launch("flash_attention_bwd", (B, H, Hkv, Sq, Sk, Dh))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward, keeping q, k, v and each row's log-sum-exp;
+    the backward kernels for the gradients of q, k and v (the
+    GQA sum over a KV head's query heads is taken inside the dK/dV
+    kernel).  ``causal`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        q, k, v = _aligned(q, k, v)
+        out, lse = _forward(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, lse, dout, ctx.causal)
+        return dq, dk, dv, None
 
 
 def kernel_resources(dtype: torch.dtype, Dh: int) -> dict:

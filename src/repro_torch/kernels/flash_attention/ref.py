@@ -7,7 +7,9 @@ reference package's blocked algorithm step for step: queries in blocks of
 a running max ``m``, denominator ``l`` and accumulator ``acc`` in float32
 (float64 for float64 inputs: the yardstick of the kernel's accuracy), and
 the finite mask value ``NEG_INF``.  Memory is O(S * block) instead of
-the O(S^2) score matrix.
+the O(S^2) score matrix, under autograd too: each query block is
+recomputed in the backward (``torch.utils.checkpoint``), as the
+reference checkpoints its ``q_step``.
 
 Contract (shared with the kernel and ``ops.py``):
   q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh), GQA via H % Hkv == 0;
@@ -20,6 +22,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -50,13 +53,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(Dh)
     dev = q.device
 
-    out = torch.empty((B, H, nq * q_block, Dh), dtype=work, device=dev)
-    for qi in range(nq):
-        qc = q[:, :, qi * q_block:(qi + 1) * q_block]
+    def q_step(qc, qpos):
+        """The output of one block of queries over every key block."""
         acc = torch.zeros_like(qc)
         m = torch.full(qc.shape[:3], NEG_INF, dtype=work, device=dev)
         l = torch.zeros(qc.shape[:3], dtype=work, device=dev)
-        qpos = qi * q_block + torch.arange(q_block, device=dev) + offset
         for kj in range(nk):
             kc = k[:, :, kj * kv_block:(kj + 1) * kv_block]
             vc = v[:, :, kj * kv_block:(kj + 1) * kv_block]
@@ -73,6 +74,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd",
                                                        p, vc)
             m = m_new
-        out[:, :, qi * q_block:(qi + 1) * q_block] = \
-            acc / torch.clamp(l, min=1e-30)[..., None]
-    return out[:, :, :Sq].to(dtype)
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    # under autograd each query block is recomputed in the backward rather
+    # than kept (the reference's jax.checkpoint of its q_step): the blocks'
+    # (q_block, kv_block) scores would otherwise be kept for every layer
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    blocks = []
+    for qi in range(nq):
+        qc = q[:, :, qi * q_block:(qi + 1) * q_block]
+        qpos = qi * q_block + torch.arange(q_block, device=dev) + offset
+        blocks.append(checkpoint(q_step, qc, qpos, use_reentrant=False)
+                      if keep else q_step(qc, qpos))
+    return torch.cat(blocks, dim=2)[:, :, :Sq].to(dtype)

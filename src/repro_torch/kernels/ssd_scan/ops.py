@@ -7,8 +7,12 @@ CUDA kernel (``ssd_scan.cu``) for tensors on a GPU and the chunked
 algorithm (:func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_folded`,
 the reference model's own arithmetic) for tensors on the CPU.
 :func:`ssd_scan_kernel` is the same entry point on the kernel's layout.
-The kernel is forward-only, as the TPU kernel is: for inputs
-that require grad (with grad enabled) the wrapper raises on a GPU.
+For inputs that require grad (with grad enabled) the GPU path goes through
+:class:`_SSDScan`, an ``autograd.Function`` whose backward recomputes the
+states entering each tile with the forward's stages 1-2 and launches the
+backward kernels (``ssd_scan_bwd.cu``: state gradients, tile gradients,
+group sums).  The TPU kernel has no backward; the reference trains through
+its plain ``ssd_chunked``, which is what the CPU path here differentiates.
 """
 from __future__ import annotations
 
@@ -33,6 +37,19 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.ssd_scan_workspace_floats.argtypes = [_I64] * 6
         lib.ssd_scan_workspace_floats.restype = _I64
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    if not hasattr(lib, "_typed"):
+        for name in ("ssd_scan_bwd_f32", "ssd_scan_bwd_bf16"):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * 12 + [_I64] * 7 + [_P]
+            fn.restype = ctypes.c_int
+        lib.ssd_scan_bwd_scratch_floats.argtypes = [_I64] * 6
+        lib.ssd_scan_bwd_scratch_floats.restype = _I64
         lib._typed = True
     return lib
 
@@ -67,10 +84,73 @@ def ssd_scan_kernel(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     if not use_kernel(impl, xdt):
         return ssd_chunked_folded(xdt, dA, B, C, chunk)
     _check(xdt, dA, B, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xdt, dA, B, C)):
+        return _SSDScan.apply(xdt, dA, B, C, chunk)
+    return _forward(xdt, dA, B, C, chunk)
+
+
+def _forward(xdt, dA, B, C, chunk: int):
+    """The scan's three launches on checked inputs: (y, final state)."""
     y, st, _ = _run(xdt, dA, B, C, chunk, stages=3)
     b, H, S, P = xdt.shape
     count_launch("ssd_scan", (b, H, B.shape[1], S, P, B.shape[3], chunk))
     return y, st
+
+
+def _backward(xdt, dA, B, C, dy, dst, chunk: int):
+    """The backward on the forward's inputs, y's gradient ``dy`` and the
+    final state's ``dst`` (or None): the states entering each tile again
+    from the forward's stages 1-2, in float32 whatever the inputs' type,
+    then the three backward launches.  Returns (dxdt, ddA, dB, dC) in the
+    inputs' dtypes."""
+    b, H, S, P = xdt.shape
+    G, N = B.shape[1], B.shape[3]
+    x32, B32 = (t if t.dtype == torch.float32 else t.float()
+                for t in (xdt, B))
+    # stages 1-2 read xdt, dA and B only; B32 stands in for C
+    _, _, hws = _run(x32, dA, B32, B32, chunk, stages=2)
+    dy = torch.zeros_like(xdt) if dy is None else \
+        dy.to(xdt.dtype).contiguous()
+    gT = None if dst is None else dst.float().contiguous()
+    lib = _bwd_lib()
+    scratch = torch.empty(lib.ssd_scan_bwd_scratch_floats(b, H, S, P, N,
+                                                          chunk),
+                          dtype=torch.float32, device=xdt.device)
+    dxdt, dB, dC = torch.empty_like(xdt), torch.empty_like(B), \
+        torch.empty_like(C)
+    ddA = torch.empty((b, H, S), dtype=torch.float32, device=xdt.device)
+    fn = (lib.ssd_scan_bwd_f32 if xdt.dtype == torch.float32
+          else lib.ssd_scan_bwd_bf16)
+    dA32 = dA.float()                # exact for a bfloat16 dA
+    launch(lib, fn, "ssd_scan_bwd", xdt.device, xdt.data_ptr(),
+           dA32.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+           0 if gT is None else gT.data_ptr(), hws.data_ptr(),
+           scratch.data_ptr(), dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
+           dC.data_ptr(), b, H, G, S, P, N, chunk)
+    count_launch("ssd_scan_bwd", (b, H, G, S, P, N, chunk))
+    return dxdt, ddA.to(dA.dtype), dB, dC
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan's forward, keeping only its inputs (xdt, dA, B, C): the
+    backward recomputes the states entering each tile rather than keep the
+    forward's workspace (168 MB a layer at mamba2-2.7b's B 2 x 2048).  The
+    gradients of y and of the final state may each be None; ``chunk`` gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        y, st = _forward(xdt, dA, B, C, chunk)
+        ctx.save_for_backward(xdt, dA, B, C)
+        ctx.chunk = chunk
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        xdt, dA, B, C = ctx.saved_tensors
+        return (*_backward(xdt, dA, B, C, dy, dst, ctx.chunk), None)
 
 
 def _check(xdt, dA, B, C, chunk: int) -> None:
@@ -103,11 +183,6 @@ def _check(xdt, dA, B, C, chunk: int) -> None:
                          f"{B.device}, {C.device}")
     if not all(t.is_contiguous() for t in (xdt, dA, B, C)):
         raise ValueError("the kernel takes contiguous xdt, dA, B, C")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (xdt, dA, B, C)):
-        raise NotImplementedError(
-            "the CUDA ssd_scan kernel is forward-only; run it under "
-            "torch.inference_mode() or torch.no_grad()")
 
 
 def _run(xdt, dA, B, C, chunk: int, stages: int):

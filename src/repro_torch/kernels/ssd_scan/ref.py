@@ -58,7 +58,9 @@ def ssd_chunked_folded(xdt, dA, B, C, chunk: int,
                        init_state: Optional[torch.Tensor] = None):
     """The chunked SSD on the kernel's layout: xdt (B, H, S, P), dA
     (B, H, S), B/C (B, G, S, N) -> y (B, H, S, P) in xdt's dtype, final
-    state (B, H, P, N) float32.  All arithmetic is float32.
+    state (B, H, P, N) float32.  All arithmetic is float32 (float64, and a
+    float64 final state, for float64 inputs: the yardstick of the
+    kernels' accuracy).
 
     Every product is between two operands (the reference's three- and
     four-operand einsums, taken left to right, would build a
@@ -69,10 +71,11 @@ def ssd_chunked_folded(xdt, dA, B, C, chunk: int,
     if chunk < 1 or S % chunk:
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
     nc, Q, rep = S // chunk, chunk, H // G
-    x = xdt.float().reshape(b, G, rep, nc, Q, P)
-    a = dA.float().reshape(b, G, rep, nc, Q)
-    Bc = B.float().reshape(b, G, 1, nc, Q, N)
-    Cc = C.float().reshape(b, G, 1, nc, Q, N)
+    work = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x = xdt.to(work).reshape(b, G, rep, nc, Q, P)
+    a = dA.to(work).reshape(b, G, rep, nc, Q)
+    Bc = B.to(work).reshape(b, G, 1, nc, Q, N)
+    Cc = C.to(work).reshape(b, G, 1, nc, Q, N)
     cs = torch.cumsum(a, dim=-1)                         # within each chunk
 
     # 1) intra-chunk (quadratic) term: (C B^T o L) xdt
@@ -89,7 +92,7 @@ def ssd_chunked_folded(xdt, dA, B, C, chunk: int,
     if init_state is None:
         st = x.new_zeros((b, G, rep, P, N))
     else:
-        st = init_state.float().reshape(b, G, rep, P, N)
+        st = init_state.to(work).reshape(b, G, rep, P, N)
     prev = []
     for c in range(nc):
         prev.append(st)                                  # state BEFORE c

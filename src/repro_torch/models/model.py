@@ -434,9 +434,9 @@ class Transformer(nn.Module):
         ``impl`` is handed to the kernel entry points: the flash
         attention, which causal self-attention over ``FLASH_MIN_SEQ``
         tokens or more runs through (never cross-attention or the
-        encoder's), and every mamba2 layer's ``ssd_scan``.  Both CUDA
-        kernels are forward-only: call this under
-        ``torch.inference_mode()`` on a GPU."""
+        encoder's), and every mamba2 layer's ``ssd_scan``.  Under grad
+        on a GPU both go through their ``autograd.Function``: the
+        forward kernel, then the backward kernels in the backward."""
         B, S = tokens.shape
         cfg = self.cfg
         h = self.embed(tokens)

@@ -7,10 +7,11 @@ accumulation: the reference's ``repro.train.train_step`` on a
 
 The model's parameters are updated in place; ``metrics`` holds ``loss``,
 ``grad_norm`` and ``step`` as 0-d tensors on the model's device.  The
-gradients come from autograd through the model's forward, so on a GPU a
-step runs wherever that forward can run under grad: the CUDA flash
-attention and SSD scan kernels are forward-only and raise under grad, as
-the reference's kernels define no VJP.
+gradients come from autograd through the model's forward; on a GPU the
+flash attention and SSD scan go through their ``autograd.Function``s,
+whose backwards are CUDA kernels too (the reference's Pallas kernels
+define no VJP: it trains through their plain versions, as the CPU path
+here does).
 """
 from __future__ import annotations
 

@@ -16,7 +16,13 @@ versions within the reference's kernel-test tolerances (2e-5 in float32,
 2e-2 in bfloat16; the float32 flash kernel, 3xTF32 on the tensor cores,
 is also held to the plain version run in float64, at most twice as far
 from it as the float32 plain version), the SSD scan kernel within that test's 5e-5 / 5e-2 to
-the exact recurrence and to the chunked algorithm, and the models'
+the exact recurrence and to the chunked algorithm.  The backward kernels
+(through the wrappers' ``autograd.Function`` classes) are held to autograd of
+the plain versions within the same tolerances as shares of each
+gradient's largest magnitude, in float32 to the plain versions' float64
+gradients at most twice as far as the float32 plain versions', bit for
+bit from one run to the next; a reduced model's gradients through them
+to its gradients through the plain versions within 1e-4.  The models'
 forwards through the kernels to their forwards through the plain
 versions within 1e-4 (zamba2-7b and minicpm3-4b at full width with their
 depth cut, through the flash kernel at head dims 112 and 96 and the SSD
@@ -58,7 +64,7 @@ from repro_torch.kernels.ssd_scan.ops import (ssd_scan,  # noqa: E402
                                               ssd_scan_kernel,
                                               ssd_scan_stages)
 from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
-    ssd_chunk_parallel, ssd_scan_ref)
+    ssd_chunk_parallel, ssd_chunked_folded, ssd_scan_ref)
 from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
                                                swap_select)
 from repro_torch.kernels.swap_gain.ref import (swap_gain_ref,  # noqa: E402
@@ -297,10 +303,101 @@ def test_flash_kernel_refuses_unbuilt_head_dim(cuda_device):
         flash_attention(q, q, q, impl="kernel")
 
 
-def test_flash_kernel_refuses_grad(cuda_device):
-    q = torch.randn(1, 2, 8, 32, device=cuda_device, requires_grad=True)
-    with pytest.raises(NotImplementedError):
+# the backward kernels: every head dim, GQA ratios, Sq < Sk, non-causal
+FLASH_BWD_SHAPES = [
+    (1, 2, 2, 64, 64, 32, True),
+    (1, 4, 2, 2048, 2048, 16, True),  # the reduced configs' head dim
+    (2, 4, 2, 96, 96, 64, True),      # GQA, padding
+    (1, 4, 1, 32, 128, 64, True),     # Sq < Sk
+    (2, 2, 2, 64, 64, 128, False),    # non-causal
+    (1, 9, 3, 130, 130, 64, True),    # smollm's 9 heads over 3
+    (1, 2, 1, 70, 300, 96, True),     # Sq < Sk across several key tiles
+    (1, 4, 2, 130, 130, 112, True),   # zamba2's head dim
+    (1, 8, 2, 100, 100, 128, True),   # phi3.5's 4 heads a KV head
+    (1, 2, 2, 100, 130, 192, False),  # the MLA head dim, non-causal
+    (1, 4, 2, 40, 300, 192, True),
+    (1, 2, 1, 65, 190, 256, True),
+]
+
+
+def _flash_grads(q, k, v, dout, fn):
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, dout.to(out.dtype))
+
+
+def _rel_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", FLASH_BWD_SHAPES)
+def test_flash_backward_matches_plain(cuda_device, B, H, Hkv, Sq, Sk, Dh,
+                                      causal, dtype):
+    """dq, dk and dv through _FlashAttention (three backward launches)
+    against autograd of the plain version, as shares of each gradient's
+    largest magnitude within the forward's tolerances."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, Hkv, Sk, Dh, generator=g,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    dout = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device)
+    reset_launches()
+    got = _flash_grads(q, k, v, dout, lambda *t: flash_attention(
+        *t, causal=causal, impl="kernel"))
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_bwd"] == 1
+    want = _flash_grads(q, k, v, dout, lambda *t: flash_attention_ref(
+        *t, causal=causal))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert _rel_err(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", [(2, 9, 3, 2048, 2048, 64),
+                                             (1, 8, 2, 1024, 1024, 128),
+                                             (1, 4, 4, 1024, 1024, 112)])
+def test_flash_backward_f32_as_accurate_as_plain_f32(cuda_device, B, H, Hkv,
+                                                     Sq, Sk, Dh):
+    """Against the plain version's gradients in float64, each of the
+    kernel's float32 gradients at most twice as far as the float32 plain
+    version's (chip_smoke's rule for kernel/flash_attention_bwd)."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device)
+    k, v = (torch.randn(B, Hkv, Sk, Dh, generator=g, device=cuda_device)
+            for _ in range(2))
+    dout = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device)
+    got = _flash_grads(q, k, v, dout, lambda *t: flash_attention(
+        *t, impl="kernel"))
+    plain = _flash_grads(q, k, v, dout, flash_attention_ref)
+    exact = _flash_grads(q.double(), k.double(), v.double(), dout,
+                         flash_attention_ref)
+    for a, p, e in zip(got, plain, exact):
+        assert _rel_err(a, e) <= 2 * _rel_err(p, e)
+
+
+def test_flash_backward_is_deterministic(cuda_device):
+    """No atomics: two backwards on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(1, 9, 1000, 64, generator=g, device=cuda_device)
+    k, v = (torch.randn(1, 3, 1000, 64, generator=g, device=cuda_device)
+            for _ in range(2))
+    dout = torch.randn(1, 9, 1000, 64, generator=g, device=cuda_device)
+    run = lambda: _flash_grads(q, k, v, dout, lambda *t: flash_attention(
+        *t, impl="kernel"))
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_flash_grad_refuses_unbuilt_head_dim(cuda_device):
+    """Under grad an unbuilt head dim raises before any launch."""
+    q = torch.randn(1, 2, 8, 24, device=cuda_device, requires_grad=True)
+    reset_launches()
+    with pytest.raises(ValueError, match="head dims"):
         flash_attention(q, q, q, impl="kernel")
+    assert sum(LAUNCHES.values()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -442,12 +539,69 @@ def test_ssd_entry_point_model_layout(cuda_device):
     torch.testing.assert_close(st, st_r, atol=5e-5, rtol=5e-5)
 
 
-def test_ssd_kernel_refuses_grad(cuda_device):
-    xdt, dA, Bm, Cm = _ssd_inputs(cuda_device, 1, 2, 1, 16, 16, 16,
-                                  torch.float32)
-    xdt.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        ssd_scan_kernel(xdt, dA, Bm, Cm, chunk=8, impl="kernel")
+def _ssd_grads(ins, dy, dst, fn):
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    y, st = fn(*leaves)
+    return torch.autograd.grad((y, st), leaves,
+                               (dy.to(y.dtype), dst.to(st.dtype)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_SHAPES)
+def test_ssd_backward_matches_plain(cuda_device, B, H, G, S, P, N, chunk,
+                                    dtype):
+    """The gradients of xdt, dA, B and C through _SSDScan (the forward's
+    stages 1-2 again, then three backward launches), with a nonzero final
+    state's gradient, against autograd of the chunked plain version, as
+    shares of each gradient's largest magnitude within the forward's
+    tolerances; chunk = S among the shapes."""
+    ins = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    dy = torch.randn(B, H, S, P, generator=g, device=cuda_device)
+    dst = torch.randn(B, H, P, N, generator=g, device=cuda_device)
+    reset_launches()
+    got = _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
+        *t, chunk=chunk, impl="kernel"))
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 1 and LAUNCHES["ssd_scan_bwd"] == 1
+    want = _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
+        *t, chunk=chunk, impl="ref"))
+    for a, b, t in zip(got, want, ins):
+        assert a.dtype == t.dtype
+        assert _rel_err(a, b) <= SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("shape", [(2, 80, 1, 2048, 64, 128, 64),
+                                   (1, 112, 1, 1024, 64, 64, 64),
+                                   (2, 4, 2, 128, 32, 32, 32)])
+def test_ssd_backward_f32_as_accurate_as_plain_f32(cuda_device, shape):
+    """Each float32 gradient at most twice as far from the plain version's
+    float64 gradients as the float32 plain version's."""
+    B, H, G, S, P, N, chunk = shape
+    ins = _ssd_inputs(cuda_device, B, H, G, S, P, N, torch.float32)
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    dy = torch.randn(B, H, S, P, generator=g, device=cuda_device)
+    dst = torch.randn(B, H, P, N, generator=g, device=cuda_device)
+    run = lambda impl: _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
+        *t, chunk=chunk, impl=impl))
+    got, plain = run("kernel"), run("ref")
+    exact = _ssd_grads([t.double() for t in ins], dy, dst,
+                       lambda *t: ssd_chunked_folded(*t, chunk))
+    for a, p, e in zip(got, plain, exact):
+        assert _rel_err(a, e) <= 2 * _rel_err(p, e)
+
+
+def test_ssd_backward_is_deterministic(cuda_device):
+    """dB and dC are summed over a group's heads in head order, with no
+    atomics: two backwards give the same bits."""
+    ins = _ssd_inputs(cuda_device, 2, 8, 2, 256, 64, 128, torch.float32)
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    dy = torch.randn(2, 8, 256, 64, generator=g, device=cuda_device)
+    dst = torch.randn(2, 8, 64, 128, generator=g, device=cuda_device)
+    run = lambda: _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
+        *t, chunk=64, impl="kernel"))
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -788,24 +942,43 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert bool(((c_params[k] - t)[near].abs() <= 2 * opt.lr).all())
 
 
-@pytest.mark.parametrize("arch,S,kernel", [
-    ("mamba2-2.7b", 64, "ssd_scan"),            # every mamba2 layer
-    ("smollm-135m", 2048, "flash_attention"),   # the flash branch
+@pytest.mark.parametrize("arch,S,kernels", [
+    ("mamba2-2.7b", 64, ("ssd_scan",)),           # every mamba2 layer
+    ("smollm-135m", 2048, ("flash_attention",)),  # the flash branch
+    ("zamba2-7b", 2048, ("ssd_scan", "flash_attention")),
 ])
-def test_train_step_refuses_forward_only_kernel(cuda_device, arch, S,
-                                                kernel):
-    """A train step that reaches a forward-only CUDA kernel under grad
-    raises from that kernel's wrapper: no plain-version fallback."""
-    from pathlib import Path
+def test_train_step_through_kernels_matches_plain(cuda_device, arch, S,
+                                                  kernels):
+    """The gradients of a reduced model's loss through the kernels and
+    their backwards (one of each a layer that reaches it) against the
+    same weights' gradients through the plain versions on the card: the
+    loss within 1e-5, every gradient within 1e-4 of its largest
+    magnitude; then one make_train_step through the kernels is finite."""
     from repro_torch.train.data import SyntheticDataset
     from repro_torch.train.optimizer import AdamW
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import cross_entropy, make_train_step
 
     cfg = reduced(get_arch(arch))
     model = M.init(cfg, seed=0, device=cuda_device)
-    opt = AdamW()
     batch = SyntheticDataset(cfg.vocab, S, 1, seed=0).batch(0)
-    with pytest.raises(NotImplementedError, match="forward-only") as info:
-        make_train_step(cfg, opt)(model, opt.init(model), batch)
-    assert Path(str(info.traceback[-1].path)).parts[-3:] \
-        == ("kernels", kernel, "ops.py")
+    toks, labels = (batch[k].to(cuda_device) for k in ("tokens", "labels"))
+    ps = list(model.parameters())
+    out = {}
+    for impl in ("auto", "ref"):
+        reset_launches()
+        loss = cross_entropy(model(toks, impl=impl), labels)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, ps),
+                     dict(LAUNCHES))
+    (loss, grads, launches), (p_loss, p_grads, p_launches) = \
+        out["auto"], out["ref"]
+    assert sum(p_launches.values()) == 0
+    for name in kernels:
+        assert launches[name] > 0
+        assert launches[f"{name}_bwd"] == launches[name]
+    assert loss == pytest.approx(p_loss, rel=1e-5)
+    for a, b in zip(grads, p_grads):
+        assert _rel_err(a, b) <= 1e-4
+    opt = AdamW()
+    _, m = make_train_step(cfg, opt)(model, opt.init(model), batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))

@@ -219,7 +219,8 @@ def test_cpu_tensors_run_plain_version_without_launching():
                 torch.from_numpy(contrib), torch.tensor([0]), 8)
     assert LAUNCHES == {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
                         "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0,
-                        "ssd_scan": 0}
+                        "ssd_scan": 0, "flash_attention_bwd": 0,
+                        "ssd_scan_bwd": 0}
 
 
 def test_kernel_impl_refuses_cpu_tensors():

@@ -76,9 +76,12 @@ def build(src: Path, out_dir: Path, tag: str, kernel: str):
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     if kernel == "flash_attention":
+        # sources from the backward on take an lse pointer after o
+        lib.with_lse = "void* lse" in Path(src).read_text()
         for name in ("flash_attention_f32", "flash_attention_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 4 + [_I64] * 6 + [ctypes.c_int, _P]
+            fn.argtypes = [_P] * (5 if lib.with_lse else 4) + [_I64] * 6 \
+                + [ctypes.c_int, _P]
             fn.restype = ctypes.c_int
         return lib
     staged = hasattr(lib, "ssd_scan_workspace_floats")
@@ -121,8 +124,10 @@ def caller(lib, kernel: str, case, data):
         q, k, v = data
         o = torch.empty_like(q)
         fn = lib.flash_attention_f32 if f32 else lib.flash_attention_bf16
+        lse = (None,) if lib.with_lse else ()
         args = lambda: (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), B, H, Hkv, Sq, Sk, Dh, causal, stream())
+                        o.data_ptr(), *lse, B, H, Hkv, Sq, Sk, Dh, causal,
+                        stream())
         outs = (o,)
     else:
         B, H, G, S, P, N, chunk, _ = case
