@@ -14,7 +14,8 @@ toolkit.  The script
    queued behind a spin kernel) and the kernel wrapper's host time;
 3. places real jobs through the port's ``PlacementEngine`` (torch backend
    on ``cuda``, float64) — dense, fault-weighted, dense-guest, implicit
-   torus and implicit fat-tree paths — and requires each hop-bytes to equal
+   torus and implicit fat-tree paths (512 ranks on 16384 and 8192 nodes)
+   — and requires each hop-bytes to equal
    the reference package's NumPy result, and each kernel to have been
    launched on the path that needs it (launch counts are zeroed just
    before each placement and read just after; the three cheap cells are
@@ -102,8 +103,9 @@ toolkit.  The script
    build, and the serve driver;
 7d. holds the backward kernels (``kernel/flash_attention_bwd``,
    ``kernel/ssd_scan_bwd``): dq, dk, dv at smollm-135m's B 2 x 4096 and
-   the five model shapes at B 2 x 2048 in float32 (Dh 64, 96, 112, 128,
-   192) and at Dh 64 and 128 in bfloat16, and the SSD's four gradients
+   the five model shapes at B 2 x 2048 in float32 and in bfloat16 (Dh 64,
+   96, 112, 128, 192; each record beside its kernel's time in the
+   previous design, ``was_ms``), and the SSD's four gradients
    (with a nonzero final-state gradient) at mamba2's and zamba2's
    B 2 x 2048 in both types, each against the plain version's autograd
    gradients run in float64, at most twice as far as the same-dtype
@@ -186,6 +188,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM3
 # bandwidth, the non-tensor-core float32 / float64 rates, and the dense
@@ -211,8 +214,8 @@ EXPECTED = {
     "place/torus-16x16x16/npb_dt-1024/healthy/greedy": 150976000000.0,
     "place/fattree-k16/npb_dt-256/faulty32": 30182400000.0,
     "place/torus-16x16x16/alltoall-1024/healthy": 471755468750.0,
-    "place/torus-32x32x16/npb_dt-1024/implicit": 149875200000.0,
-    "place/fattree-k32/npb_dt-1024/faulty64": 128102400000.0,
+    "place/torus-32x32x16/npb_dt-512/implicit": 51673600000.0,
+    "place/fattree-k32/npb_dt-512/faulty64": 55628800000.0,
 }
 
 # The paper's Section 5.2 experiment (paper phase): run_preset(
@@ -559,6 +562,8 @@ LOG = OUT_DIR / "chip_smoke.jsonl"
 
 
 def emit(obj) -> None:
+    if "phase" in obj:                      # seconds since the run began
+        obj = {**obj, "t": time.perf_counter() - T_START}
     line = json.dumps(obj)
     print(line, flush=True)
     if LOG.parent.is_dir():
@@ -608,6 +613,18 @@ def flash_resources() -> list:
     return [{"dtype": str(dt).removeprefix("torch."), "Dh": d,
              **kernel_resources(dt, d)}
             for dt in (torch.float32, torch.bfloat16) for d in HEAD_DIMS]
+
+
+def flash_bwd_resources() -> list:
+    """The same of each backward kernel (dQ, dK/dV) of every
+    flash_attention_bwd instance."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         bwd_kernel_resources)
+    return [{"dtype": str(dt).removeprefix("torch."), "Dh": d,
+             "kernel": name, **res}
+            for dt in (torch.float32, torch.bfloat16) for d in HEAD_DIMS
+            for name, res in bwd_kernel_resources(dt, d).items()]
 
 
 def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3,
@@ -865,9 +882,15 @@ def profiled(run, key: str, spans=()) -> dict:
 
     ``spans`` are (module, function name, label): each function is wrapped
     in ``record_function(label)`` for the run, and the device time of the
-    kernels it launched is reported by label (``span_device_s``), beside
-    the ``flash_attention`` kernel's and the matrix products' (kernels
-    named ``*gemm*``)."""
+    kernels launched by the ops inside it is reported by label
+    (``span_device_s``), beside the ``flash_attention`` kernel's and the
+    matrix products' (kernels named ``*gemm*``).
+
+    The sums are taken over the profiler's raw events
+    (``kineto_results.events()``): ``key_averages()`` builds a Python
+    event and its place in a parent tree for each of them, which cost up
+    to 87 s a profile on an H100 (the storm's first 30 requests) where
+    these sums take seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -881,6 +904,7 @@ def profiled(run, key: str, spans=()) -> dict:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     labels = {label for *_, label in spans}
     torch.cuda.synchronize()
+    t_in = time.perf_counter()
     with contextlib.ExitStack() as stack:
         for module, name, label in spans:
             stack.enter_context(patched(module, name,
@@ -890,20 +914,19 @@ def profiled(run, key: str, spans=()) -> dict:
             run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    ka = prof.key_averages()
+    host, dev = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.name() not in PROFILER_OWN_EVENTS:
+            (dev if e.device_type() == DeviceType.CUDA else host).append(e)
     # "Command Buffer Full" is CUPTI's record of the host waiting on a
     # full launch queue, not work on the card: kept apart from busy time;
     # so are the spans' own device-side ranges
-    stalls = [e for e in ka if e.key == "Command Buffer Full"]
-    dev_events = [e for e in ka if e.device_type == DeviceType.CUDA
-                  and e.key != "Command Buffer Full" and e.key not in labels]
-    busy = sum(e.self_device_time_total for e in dev_events) / 1e6
+    stall = "Command Buffer Full"
+    work = [e for e in dev if e.name() != stall and e.name() not in labels]
+    busy = sum(e.duration_ns() for e in work) / 1e9
     extra = {}
     if spans:
-        extra["span_device_s"] = {
-            label: sum(e.device_time_total for e in ka if e.key == label
-                       and e.device_type == DeviceType.CPU) / 1e6
-            for label in sorted(labels)}
+        extra["span_device_s"] = span_device_s(host, work, labels)
         for part, test in (("flash_attention", lambda k: "flash" in k),
                            ("gemm", lambda k: "gemm" in k.lower()),
                            ("flash_attention_bwd", lambda k: any(
@@ -911,22 +934,93 @@ def profiled(run, key: str, spans=()) -> dict:
                            ("ssd_scan_bwd", lambda k: any(
                                n in k for n in SSD_BWD_KERNEL_NAMES))):
             extra[f"{part}_device_s"] = sum(
-                e.self_device_time_total for e in dev_events
-                if test(e.key)) / 1e6
+                e.duration_ns() for e in work if test(e.name())) / 1e9
     OUT_DIR.mkdir(exist_ok=True)
     fname = OUT_DIR / ("profile_" + key.replace("/", "_") + ".txt")
-    fname.write_text(
-        ka.table(sort_by="self_device_time_total", row_limit=25)
-        + "\n" + ka.table(sort_by="self_cpu_time_total", row_limit=25))
+    fname.write_text(event_table(work, "device kernels and copies")
+                     + "\n" + event_table(host, "host ops (inclusive)"))
     return {"profiled_wall_s": wall, "device_busy_s": busy,
+            # the profiler's own cost: tracing, stopping, the sums, tables
+            "profiler_s": time.perf_counter() - t_in - wall,
             "device_idle_share": 1.0 - busy / wall,
-            "device_ops": sum(e.count for e in dev_events),
-            "command_buffer_full_s": sum(e.self_device_time_total
-                                         for e in stalls) / 1e6, **extra}
+            "device_ops": len(work),
+            "command_buffer_full_s": sum(stall_s(e) for e in dev + host
+                                         if e.name() == stall),
+            **extra}
+
+
+def stall_s(e) -> float:
+    """A "Command Buffer Full" event's seconds, as ``key_averages()``
+    counts them: the host records it with the CUDA time CUPTI gave it."""
+    from torch.autograd import DeviceType
+    if e.device_type() == DeviceType.CUDA:
+        return e.duration_ns() / 1e9
+    return max(e.cuda_elapsed_us(), 0) / 1e6
+
+
+# events the profiler records about itself (torch's own tables skip them)
+PROFILER_OWN_EVENTS = frozenset((
+    "[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+    "profiler::_record_function_enter_new",
+    "profiler::_record_function_exit"))
+
+
+def span_device_s(host: list, work: list, labels) -> dict:
+    """Each label's device seconds: the device events (``work``) whose
+    launching op began, on the span's thread, inside a ``label`` span;
+    an op inside two nested spans of one label counts twice, as
+    torch's ``key_averages()`` counts it."""
+    import bisect
+    spans = {label: [] for label in labels}
+    for e in host:
+        if e.name() in spans:
+            spans[e.name()].append((e.start_ns(), e.end_ns(),
+                                    e.start_thread_id()))
+    starts, longest = {}, {}
+    for label, ivs in spans.items():
+        ivs.sort()
+        starts[label] = [s for s, _, _ in ivs]
+        longest[label] = max((end - s for s, end, _ in ivs), default=0)
+    # the op (a host event linked to no other) each device event names
+    ops = {e.correlation_id(): (e.start_ns(), e.start_thread_id())
+           for e in host if e.linked_correlation_id() == 0}
+    out = dict.fromkeys(labels, 0)
+    for e in work:
+        op = ops.get(e.linked_correlation_id())
+        if op is None:
+            continue
+        t, thread = op
+        for label, ivs in spans.items():
+            i = bisect.bisect_right(starts[label], t) - 1
+            while i >= 0 and ivs[i][0] >= t - longest[label]:
+                s, end, th = ivs[i]
+                if th == thread and t <= end:
+                    out[label] += e.duration_ns()
+                i -= 1
+    return {label: out[label] / 1e9 for label in sorted(labels)}
+
+
+def event_table(events: list, title: str, rows: int = 25) -> str:
+    """The ``rows`` names with the most summed time among ``events``:
+    calls, total ms, mean us and share of the total."""
+    calls, total = {}, {}
+    for e in events:
+        name = e.name()
+        calls[name] = calls.get(name, 0) + 1
+        total[name] = total.get(name, 0) + e.duration_ns()
+    whole = sum(total.values()) or 1
+    top = sorted(total, key=total.get, reverse=True)[:rows]
+    lines = [f"{title}: {len(events)} events, {whole / 1e6:.3f} ms",
+             f"{'total ms':>12} {'share':>7} {'calls':>8} {'mean us':>10}"
+             "  name"]
+    lines += [f"{total[n] / 1e6:12.3f} {total[n] / whole:7.2%} "
+              f"{calls[n]:8d} {total[n] / calls[n] / 1e3:10.3f}  {n[:160]}"
+              for n in top]
+    return "\n".join(lines) + "\n"
 
 
 # the CUDA kernels each backward launches, by name in a profiler trace
-FLASH_BWD_KERNEL_NAMES = ("row_stats_kernel", "dkdv_kernel", "dq_kernel")
+FLASH_BWD_KERNEL_NAMES = ("dq_kernel", "dkdv_kernel")
 SSD_BWD_KERNEL_NAMES = ("state_grad_kernel", "tile_grad_kernel",
                         "group_sum_kernel")
 
@@ -977,14 +1071,18 @@ def placement_phases() -> None:
         "place/torus-16x16x16/alltoall-1024/healthy",
         PlacementRequest(comm=alltoall_heavy(1024).comm, topology=t16),
         need=("swap_select",), profile=True)
+    # the implicit cells place 512 ranks: on an H100 1024 ranks took
+    # 85-112 s on the torus and 38-51 s on the fat tree (eager launches of
+    # the sparse refine), 512 ranks 31 and 14 s
+    npb512 = npb_dt_like(512, seed=3).comm
     yield lambda: place_phase(
-        "place/torus-32x32x16/npb_dt-1024/implicit",
-        PlacementRequest(comm=npb1024, topology=TorusTopology((32, 32, 16))),
+        "place/torus-32x32x16/npb_dt-512/implicit",
+        PlacementRequest(comm=npb512, topology=TorusTopology((32, 32, 16))),
         need=("torus_hop",), warm=False)
     ft32 = FatTreeTopology(32)
     yield lambda: place_phase(
-        "place/fattree-k32/npb_dt-1024/faulty64",
-        PlacementRequest(comm=npb1024, topology=ft32,
+        "place/fattree-k32/npb_dt-512/faulty64",
+        PlacementRequest(comm=npb512, topology=ft32,
                          p_f=_faults(ft32.n_nodes, 64)),
         need=("fattree_hop",), warm=False)
 
@@ -1766,13 +1864,25 @@ def check_ssd(dev, dt: str, shape: tuple, tag: str, timed: bool) -> dict:
 
 # the backward kernels' phases: flash_attention_bwd at smollm-135m's B 2 x
 # 4096 (the summary line's record) and the five model shapes at B 2 x 2048
-# in float32 (smollm, minicpm3, zamba2, phi3.5, deepseek), at Dh 64 and 128
-# in bfloat16; ssd_scan_bwd at mamba2's and zamba2's B 2 x 2048 in both
-# types
+# (smollm, minicpm3, zamba2, phi3.5, deepseek: every model head dim) in
+# float32 and bfloat16; ssd_scan_bwd at mamba2's and zamba2's B 2 x 2048
+# in both types
 FLASH_S4096 = (2, 9, 3, 4096, 4096, 64)    # train/smollm-135m/S4096's
 FLASH_BWD_SHAPES = {"float32": (FLASH_S4096, FLASH_MAIN, FLASH_MINICPM3,
                                 FLASH_ZAMBA2, FLASH_PHI35, FLASH_DSV2),
-                    "bfloat16": (FLASH_MAIN, FLASH_PHI35)}
+                    "bfloat16": (FLASH_MAIN, FLASH_MINICPM3, FLASH_ZAMBA2,
+                                 FLASH_PHI35, FLASH_DSV2)}
+# the CUDA-core design's device ms at those shapes (chip_smoke.py's
+# kernel/flash_attention_bwd records, NVIDIA H100 80GB HBM3, 700 W), the
+# `was_ms` of each record; none where it was not timed
+FLASH_BWD_WAS_MS = {("float32", FLASH_S4096): 9.713,
+                    ("float32", FLASH_MAIN): 3.491,
+                    ("float32", FLASH_MINICPM3): 17.05,
+                    ("float32", FLASH_ZAMBA2): 16.65,
+                    ("float32", FLASH_PHI35): 18.49,
+                    ("float32", FLASH_DSV2): 18.34,
+                    ("bfloat16", FLASH_MAIN): 3.434,
+                    ("bfloat16", FLASH_PHI35): 18.30}
 SSD_BWD_SHAPES = (SSD_MAIN, SSD_ZAMBA2)
 
 
@@ -1806,11 +1916,12 @@ def check_flash_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
     backwards bit-identical; the backward alone timed (the kernels on the
     forward's saved tensors) beside the plain version's backward and
     F.scaled_dot_product_attention's (one forward with its graph
-    retained, the backward timed).  The work is 2.5x the causal forward's
-    products; float32 records carry two bounds, as the forward's do:
-    ``bound_ms`` (= ``bound_tc_ms``) at 3xTF32 on the tensor cores and
-    ``bound_cuda_core_ms`` at the CUDA cores' float32 rate, which the
-    kernel runs on."""
+    retained, the backward timed), and beside the previous design's time
+    at that shape (``was_ms``, ``FLASH_BWD_WAS_MS``).  The work is 2.5x
+    the causal forward's products; float32 records carry two bounds, as
+    the forward's do: ``bound_ms`` (= ``bound_tc_ms``) at 3xTF32 on the
+    tensor cores, which the kernel runs, and ``bound_cuda_core_ms`` at the
+    CUDA cores' float32 rate."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -1874,6 +1985,7 @@ def check_flash_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
                                                     "tf32")
         rec["bound_tc_ms"] = rec["bound_ms"]
     rec["ms_over_library"] = ms / library
+    rec["was_ms"] = FLASH_BWD_WAS_MS.get((dt, shape))
     rec["shape"] = list(shape)
     ok = within_twice_plain(errs) and same
     emit({"phase": tag, "kernel": "flash_attention_bwd", "dtype": dt,
@@ -3190,6 +3302,8 @@ def main() -> int:
           "instances": ptxas_report(_build.BUILD_LOGS)})
     emit({"phase": "build/flash_resources",
           "instances": flash_resources()})
+    emit({"phase": "build/flash_bwd_resources",
+          "instances": flash_bwd_resources()})
 
     failed = []
     try:

@@ -5,9 +5,10 @@ Without grad the CUDA forward (``flash_attention.cu``) runs alone.  For
 inputs that require grad (with grad enabled) the call goes through
 :class:`_FlashAttention`, an ``autograd.Function`` whose forward launches
 the same kernel and also keeps each row's log-sum-exp, and whose backward
-launches the backward kernels (``flash_attention_bwd.cu``: a row pass,
-dK/dV, dQ).  The TPU kernel has no backward; the reference trains through
-its plain version, which is what the CPU path here differentiates.
+launches the backward kernels (``flash_attention_bwd.cu``, on the tensor
+cores: dQ with each row's l and D, then dK/dV).  The TPU kernel has no
+backward; the reference trains through its plain version, which is what
+the CPU path here differentiates.
 """
 from __future__ import annotations
 
@@ -44,6 +45,9 @@ def _bwd_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [_P] * 9 + [_I64] * 6 + [ctypes.c_int, _P]
             fn.restype = ctypes.c_int
+        lib.flash_attention_bwd_resources.argtypes = [
+            ctypes.c_int, _I64, ctypes.c_int, ctypes.POINTER(_I64)]
+        lib.flash_attention_bwd_resources.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -111,14 +115,14 @@ def _aligned(*ts):
 
 
 def _backward(q, k, v, lse, dout, causal: bool):
-    """The three backward launches (row pass, dK/dV, dQ) on the forward's
-    inputs and log-sum-exp: (dq, dk, dv) in q's dtype."""
+    """The two backward launches (dQ with the row statistics, then dK/dV)
+    on the forward's inputs and log-sum-exp: (dq, dk, dv) in q's dtype."""
     B, H, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    dout = dout.to(q.dtype).contiguous()
+    dout, = _aligned(dout.to(q.dtype).contiguous())
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
-    # each row's 1 / l and D, from the row pass
+    # each row's 1 / l and D, from the dQ launch for the dK/dV launch
     stats = torch.empty((B, H, Sq, 2), dtype=torch.float32, device=q.device)
     lib = _bwd_lib()
     fn = (lib.flash_attention_bwd_f32 if q.dtype == torch.float32
@@ -165,3 +169,21 @@ def kernel_resources(dtype: torch.dtype, Dh: int) -> dict:
                            f"{lib.error_string(err).decode()} ({err})")
     return dict(zip(("smem_bytes", "registers", "local_bytes",
                      "blocks_per_sm"), out))
+
+
+def bwd_kernel_resources(dtype: torch.dtype, Dh: int) -> dict:
+    """What each backward kernel of the instance for (``dtype``, ``Dh``)
+    takes on the current CUDA device, by kernel (``dq``, ``dkdv``), as
+    :func:`kernel_resources` gives the forward's."""
+    lib = _bwd_lib()
+    res = {}
+    for kernel, name in enumerate(("dq", "dkdv")):
+        out = (_I64 * 4)()
+        err = lib.flash_attention_bwd_resources(
+            int(dtype == torch.bfloat16), Dh, kernel, out)
+        if err:
+            raise RuntimeError(f"flash_attention_bwd_resources failed: "
+                               f"{lib.error_string(err).decode()} ({err})")
+        res[name] = dict(zip(("smem_bytes", "registers", "local_bytes",
+                              "blocks_per_sm"), out))
+    return res

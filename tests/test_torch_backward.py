@@ -35,6 +35,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
+from test_torch_kernels import _tf32_product  # noqa: E402
 
 from repro.configs import base as ref_base  # noqa: E402
 from repro.configs.registry import ARCHS as REF_ARCHS  # noqa: E402
@@ -198,17 +199,37 @@ def _flash_fwd_lse(q, k, v, causal, bk=64):
     return acc / l[..., None], (m + torch.log2(l)) * math.log(2.0)
 
 
-def _flash_bwd_design(q, k, v, lse, dout, causal, bq=64, bk=64):
+def _bwd_tiles(Dh, f32=True):
+    """The backward kernels' tiles (``Tiles`` in flash_attention_bwd.cu):
+    keys a tile of the dQ sweeps (64 query rows a block), and keys a
+    block and queries a tile of dK/dV."""
+    bk = (32 if Dh <= 128 else 16 if Dh <= 192 else 8) if f32 \
+        else (64 if Dh <= 128 else 32)
+    keys = 64 if Dh <= 128 else 32
+    bq = (16 if 64 < Dh <= 112 or Dh > 192 else 32) if f32 \
+        else (64 if Dh <= 64 else 32)
+    return dict(bq_dq=64, bk_dq=bk, keys=keys, bq_kv=bq)
+
+
+def _flash_bwd_design(q, k, v, lse, dout, causal, tiles=None, mm=None,
+                      carry=None, dq_step=None):
     """The backward kernels' algorithm.  With e = exp2(x - lse log2(e))
-    for the log2-domain scores x: the row pass, per query tile over its
-    visible KV tiles, l = sum e and D = sum e dP / l; then per KV tile,
-    over the query heads of its group in order and their query tiles from
-    the first that sees the tile, P = e / l, dS = P o (dP - D), each tile's
-    P^T dO and dS^T Q summed alone and added to the totals; per query
-    tile, over the KV tiles up to its diagonal, dS K likewise.
+    for the log2-domain scores x: per query tile of ``bq_dq`` rows a first
+    sweep over its visible KV tiles of ``bk_dq`` keys sums l = sum e and
+    D = sum e dP / l (each tile's sums alone, then added), a second forms
+    P = e / l, dS = P o (dP - D) and dS K; per KV tile of ``keys`` keys,
+    over the query heads of its group in order and their query tiles of
+    ``bq_kv`` from the first that sees the tile, P^T dO and dS^T Q.
+    ``mm(a, b)`` is each product (float32 matmul by default), ``carry``
+    what P and dS become before theirs; each tile's dS K (each
+    ``dq_step`` keys' with one given), P^T dO and dS^T Q are summed alone
+    and then added to the totals.  Tiles of ``_bwd_tiles`` by default.
     (dq, dk, dv)."""
     B, H, Sq, Dh = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    t = tiles or _bwd_tiles(Dh)
+    mm = mm or torch.matmul
+    carry = carry or (lambda x: x)
     g, offset = H // Hkv, Sk - Sq
     scale = 1.0 / math.sqrt(Dh)
     scale_log2 = 1.4426950408889634 / math.sqrt(Dh)
@@ -216,7 +237,7 @@ def _flash_bwd_design(q, k, v, lse, dout, causal, bq=64, bk=64):
     kr = k.repeat_interleave(g, dim=1)
     vr = v.repeat_interleave(g, dim=1)
 
-    def key_tiles(q0):
+    def key_tiles(q0, bq, bk):
         n = -(-Sk // bk)
         last = min(q0 + bq, Sq) - 1 + offset
         return n if not causal else (0 if last < 0 else min(n, last // bk + 1))
@@ -226,31 +247,46 @@ def _flash_bwd_design(q, k, v, lse, dout, causal, bq=64, bk=64):
         i = torch.arange(q0, q0 + qi.shape[-2])[:, None]
         j = torch.arange(k0, k0 + kk.shape[-2])[None, :]
         vis = (j <= i + offset) if causal else torch.ones_like(i < j)
-        x = qi @ kk.transpose(-1, -2) * scale_log2
+        x = mm(qi, kk.transpose(-1, -2)) * scale_log2
         e = torch.where(vis, torch.exp2(x - ci[..., None]), 0.0)
-        return e, doi @ vv.transpose(-1, -2)
-
-    il, D = torch.zeros_like(lse), torch.zeros_like(lse)
-    for q0 in range(0, Sq, bq):
-        sl = slice(q0, q0 + bq)
-        tot_l = torch.zeros_like(lse[:, :, sl])
-        tot_d = torch.zeros_like(lse[:, :, sl])
-        for kt in range(key_tiles(q0)):
-            k0 = kt * bk
-            e, dp = tile(q[:, :, sl], dout[:, :, sl], c[:, :, sl],
-                         kr[:, :, k0:k0 + bk], vr[:, :, k0:k0 + bk], q0, k0)
-            tot_l, tot_d = tot_l + e.sum(-1), tot_d + (e * dp).sum(-1)
-        il[:, :, sl], D[:, :, sl] = 1.0 / tot_l, tot_d / tot_l
+        return e, mm(doi, vv.transpose(-1, -2))
 
     def ds_of(e, dp, il_i, D_i):
         p = e * il_i[..., None]
         return p, p * (dp - D_i[..., None])
 
-    grp = lambda t: t.reshape(B, Hkv, g, *t.shape[2:])
+    bq, bk = t["bq_dq"], t["bk_dq"]
+    il, D = torch.zeros_like(lse), torch.zeros_like(lse)
+    dq = torch.zeros_like(q)
+    for q0 in range(0, Sq, bq):
+        sl = slice(q0, q0 + bq)
+        qi, doi, ci = q[:, :, sl], dout[:, :, sl], c[:, :, sl]
+        tot_l = torch.zeros_like(lse[:, :, sl])
+        tot_d = torch.zeros_like(lse[:, :, sl])
+        for kt in range(key_tiles(q0, bq, bk)):
+            k0 = kt * bk
+            e, dp = tile(qi, doi, ci, kr[:, :, k0:k0 + bk],
+                         vr[:, :, k0:k0 + bk], q0, k0)
+            tot_l, tot_d = tot_l + e.sum(-1), tot_d + (e * dp).sum(-1)
+        il[:, :, sl], D[:, :, sl] = 1.0 / tot_l, tot_d / tot_l
+        tot = torch.zeros_like(qi)
+        for kt in range(key_tiles(q0, bq, bk)):
+            k0 = kt * bk
+            kk = kr[:, :, k0:k0 + bk]
+            e, dp = tile(qi, doi, ci, kk, vr[:, :, k0:k0 + bk], q0, k0)
+            _, ds = ds_of(e, dp, il[:, :, sl], D[:, :, sl])
+            w = dq_step or kk.shape[-2]
+            for j0 in range(0, kk.shape[-2], w):
+                tot = tot + mm(carry(ds[..., j0:j0 + w]),
+                               kk[..., j0:j0 + w, :])
+        dq[:, :, sl] = tot * scale
+
+    bkv, bq = t["keys"], t["bq_kv"]
+    grp = lambda x: x.reshape(B, Hkv, g, *x.shape[2:])
     qv, dov, cv, ilv, Dv = map(grp, (q, dout, c, il, D))
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for k0 in range(0, Sk, bk):
-        kk, vv = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+    for k0 in range(0, Sk, bkv):
+        kk, vv = k[:, :, k0:k0 + bkv], v[:, :, k0:k0 + bkv]
         tot_k, tot_v = torch.zeros_like(kk), torch.zeros_like(vv)
         first = max(0, k0 - offset) if causal else 0
         for hh in range(g):
@@ -259,22 +295,38 @@ def _flash_bwd_design(q, k, v, lse, dout, causal, bq=64, bk=64):
                 qi, doi = qv[:, :, hh, sl], dov[:, :, hh, sl]
                 e, dp = tile(qi, doi, cv[:, :, hh, sl], kk, vv, q0, k0)
                 p, ds = ds_of(e, dp, ilv[:, :, hh, sl], Dv[:, :, hh, sl])
-                tot_v = tot_v + p.transpose(-1, -2) @ doi
-                tot_k = tot_k + ds.transpose(-1, -2) @ qi
-        dk[:, :, k0:k0 + bk], dv[:, :, k0:k0 + bk] = tot_k * scale, tot_v
-    dq = torch.zeros_like(q)
-    for q0 in range(0, Sq, bq):
-        sl = slice(q0, q0 + bq)
-        tot = torch.zeros_like(q[:, :, sl])
-        for kt in range(key_tiles(q0)):
-            k0 = kt * bk
-            kk = kr[:, :, k0:k0 + bk]
-            e, dp = tile(q[:, :, sl], dout[:, :, sl], c[:, :, sl], kk,
-                         vr[:, :, k0:k0 + bk], q0, k0)
-            _, ds = ds_of(e, dp, il[:, :, sl], D[:, :, sl])
-            tot = tot + ds @ kk
-        dq[:, :, sl] = tot * scale
+                tot_v = tot_v + mm(carry(p.transpose(-1, -2)), doi)
+                tot_k = tot_k + mm(carry(ds.transpose(-1, -2)), qi)
+        dk[:, :, k0:k0 + bkv], dv[:, :, k0:k0 + bkv] = tot_k * scale, tot_v
     return dq, dk, dv
+
+
+def _bf16_pair(x):
+    """x carried as the bfloat16 kernel carries P and dS into its
+    products: bf16(x) + bf16(x - bf16(x)), each term a bfloat16 value."""
+    hi = x.bfloat16().float()
+    return hi + (x - hi).bfloat16().float()
+
+
+def _flash_bwd_bf16_design(q, k, v, lse, dout, causal):
+    """The bfloat16 kernel's arithmetic: bfloat16 inputs, products summed
+    in float32, P and dS as bfloat16 pairs, the bfloat16 tiles;
+    gradients rounded to bfloat16."""
+    got = _flash_bwd_design(q.float(), k.float(), v.float(), lse,
+                            dout.float(), causal,
+                            _bwd_tiles(q.shape[-1], f32=False),
+                            carry=_bf16_pair)
+    return tuple(t.bfloat16() for t in got)
+
+
+def _flash_bwd_3xtf32_design(q, k, v, lse, dout, causal):
+    """The float32 kernel's arithmetic: every product as three TF32
+    products (``_tf32_product``, the forward's emulation), dQ's summed 8
+    keys at a time and each tile's dK and dV products alone before they
+    are added to the totals."""
+    return _flash_bwd_design(q, k, v, lse, dout, causal,
+                             mm=lambda a, b: _tf32_product(a, b, 3),
+                             dq_step=8)
 
 
 def _plain_flash_grads(q, k, v, do, causal=True):
@@ -285,26 +337,100 @@ def _plain_flash_grads(q, k, v, do, causal=True):
 
 
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", FLASH_CASES + [
-    (1, 3, 1, 40, 40, 192)])
+    (1, 3, 1, 40, 40, 192), (1, 2, 1, 129, 257, 64), (1, 2, 2, 65, 65, 256)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_backward_design_matches_autograd(B, H, Hkv, Sq, Sk, Dh,
                                                 causal):
-    """The backward kernels' algorithm (tiles of 64 up to Dh 128, 32
-    above), from the forward's log-sum-exp, against autograd of the plain
-    version; the log-sum-exp against torch.logsumexp."""
+    """The backward kernels' algorithm (the float32 instance's tiles,
+    ``_bwd_tiles``), from the forward's log-sum-exp, against autograd of
+    the plain version; the log-sum-exp against torch.logsumexp."""
     q, k, v, do = _flash_inputs(B, H, Hkv, Sq, Sk, Dh, seed=2)
     tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
     block = 64 if Dh <= 128 else 32
     _, lse = _flash_fwd_lse(tq, tk, tv, causal, block)
-    s = tq @ tk.repeat_interleave(H // Hkv, 1).transpose(-1, -2) \
-        / math.sqrt(Dh)
+    _close(lse, _exact_lse(tq, tk, causal))
+    got = _flash_bwd_design(tq, tk, tv, lse, tdo, causal)
+    for g, w in zip(got, _plain_flash_grads(q, k, v, do, causal)):
+        _close(g, w)
+
+
+def _exact_lse(q, k, causal):
+    """Each row's log-sum-exp of its scaled, masked scores, in float64."""
+    B, H, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    s = q.double() @ k.double().repeat_interleave(
+        H // k.shape[1], 1).transpose(-1, -2) / math.sqrt(Dh)
     if causal:
         i, j = torch.arange(Sq)[:, None], torch.arange(Sk)[None, :]
         s = s.masked_fill(j > i + Sk - Sq, -math.inf)
-    _close(lse, torch.logsumexp(s, -1))
-    got = _flash_bwd_design(tq, tk, tv, lse, tdo, causal, block, block)
-    for g, w in zip(got, _plain_flash_grads(q, k, v, do, causal)):
-        _close(g, w)
+    return torch.logsumexp(s, -1)
+
+
+def _errors_from_f64(got, q, k, v, do, causal):
+    """Each gradient's largest error against the plain version's autograd
+    in float64, as a share of its largest magnitude: (kernel's, the plain
+    version's in the inputs' dtype) by gradient."""
+    def grads(*ts):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ts[:3]]
+        flash_attention_ref(*leaves, causal=causal).backward(ts[3])
+        return [t.grad for t in leaves]
+
+    exact = grads(*(t.double() for t in (q, k, v, do)))
+    plain = grads(q, k, v, do)
+    out = []
+    for a, p, e in zip(got, plain, exact):
+        scale = float(e.abs().max())
+        out.append((float((a.double() - e).abs().max()) / scale,
+                    float((p.double() - e).abs().max()) / scale))
+    return out
+
+
+TC_DESIGN_CASES = FLASH_CASES + [(1, 4, 2, 40, 300, 192),
+                                 (1, 4, 2, 129, 129, 64)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", TC_DESIGN_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_3xtf32_design_within_twice_plain(B, H, Hkv, Sq, Sk,
+                                                         Dh, causal):
+    """The float32 tensor-core kernel's arithmetic (3xTF32 products, each
+    tile's sums alone, l and D from its own P and dP), held as the
+    card holds the kernel: each gradient at most twice as far from the
+    plain version's float64 gradients as the float32 plain version's."""
+    q, k, v, do = (torch.from_numpy(t) for t in
+                   _flash_inputs(B, H, Hkv, Sq, Sk, Dh, seed=7))
+    lse = _exact_lse(q, k, causal).float()
+    got = _flash_bwd_3xtf32_design(q, k, v, lse, do, causal)
+    for kernel, plain in _errors_from_f64(got, q, k, v, do, causal):
+        assert kernel <= 2 * plain
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", TC_DESIGN_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_bf16_design_within_twice_plain(B, H, Hkv, Sq, Sk,
+                                                       Dh, causal):
+    """The bfloat16 tensor-core kernel's arithmetic (bfloat16 operands, P
+    and dS as bfloat16 pairs, float32 sums, bfloat16 gradients), each
+    gradient at most twice as far from the plain version's float64
+    gradients as the bfloat16 plain version's."""
+    q, k, v, do = (torch.from_numpy(t).bfloat16() for t in
+                   _flash_inputs(B, H, Hkv, Sq, Sk, Dh, seed=8))
+    lse = _exact_lse(q, k, causal).float()
+    got = _flash_bwd_bf16_design(q, k, v, lse, do, causal)
+    for g in got:
+        assert g.dtype == torch.bfloat16
+    for kernel, plain in _errors_from_f64(got, q, k, v, do, causal):
+        assert kernel <= 2 * plain
+
+
+def test_bf16_pair_keeps_sixteen_bits():
+    """A float32 value carried as two bfloat16 terms keeps about 16 bits:
+    within 2^-16 of itself, where one bfloat16 keeps 8 (2^-9)."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096).astype(np.float32))
+    rel = lambda y: float(((y - x) / x).abs().max())
+    assert rel(_bf16_pair(x)) < 2.0 ** -16
+    assert rel(x.bfloat16().float()) > 2.0 ** -10
 
 
 def _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk):

@@ -317,6 +317,16 @@ FLASH_BWD_SHAPES = [
     (1, 2, 2, 100, 130, 192, False),  # the MLA head dim, non-causal
     (1, 4, 2, 40, 300, 192, True),
     (1, 2, 1, 65, 190, 256, True),
+    # straddling the tiles (64 query rows in dQ; 64 or 32 keys and 16 to
+    # 64 queries in dK/dV): Sq and Sk of 129 and 257
+    (1, 4, 2, 129, 129, 64, True),
+    (1, 2, 1, 257, 257, 96, True),
+    (1, 4, 4, 129, 257, 128, True),
+    (1, 2, 2, 257, 129, 128, False),
+    (1, 2, 1, 129, 257, 256, True),
+    # nemotron-4-340b's GQA ratio of 12 (96 heads over 8), reduced in length
+    (1, 12, 1, 257, 257, 192, True),
+    (1, 24, 2, 129, 129, 64, True),
 ]
 
 
@@ -335,7 +345,7 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh,causal", FLASH_BWD_SHAPES)
 def test_flash_backward_matches_plain(cuda_device, B, H, Hkv, Sq, Sk, Dh,
                                       causal, dtype):
-    """dq, dk and dv through _FlashAttention (three backward launches)
+    """dq, dk and dv through _FlashAttention (two backward launches)
     against autograd of the plain version, as shares of each gradient's
     largest magnitude within the forward's tolerances."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
@@ -378,13 +388,40 @@ def test_flash_backward_f32_as_accurate_as_plain_f32(cuda_device, B, H, Hkv,
         assert _rel_err(a, e) <= 2 * _rel_err(p, e)
 
 
-def test_flash_backward_is_deterministic(cuda_device):
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,Dh", [(2, 9, 3, 2048, 2048, 64),
+                                             (1, 8, 2, 1024, 1024, 96),
+                                             (1, 8, 2, 1024, 1024, 128),
+                                             (1, 4, 4, 1024, 1024, 192)])
+def test_flash_backward_bf16_as_accurate_as_plain_bf16(cuda_device, B, H,
+                                                       Hkv, Sq, Sk, Dh):
+    """The bfloat16 twin of the float32 rule: against the plain version's
+    gradients in float64, each of the kernel's bfloat16 gradients at most
+    twice as far as the bfloat16 plain version's."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device)
+    k, v = (torch.randn(B, Hkv, Sk, Dh, generator=g, device=cuda_device)
+            for _ in range(2))
+    dout = torch.randn(B, H, Sq, Dh, generator=g, device=cuda_device)
+    q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    got = _flash_grads(q, k, v, dout, lambda *t: flash_attention(
+        *t, impl="kernel"))
+    plain = _flash_grads(q, k, v, dout, flash_attention_ref)
+    exact = _flash_grads(q.double(), k.double(), v.double(), dout,
+                         flash_attention_ref)
+    for a, p, e in zip(got, plain, exact):
+        assert a.dtype == torch.bfloat16
+        assert _rel_err(a, e) <= 2 * _rel_err(p, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda_device, dtype):
     """No atomics: two backwards on the same inputs give the same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
     q = torch.randn(1, 9, 1000, 64, generator=g, device=cuda_device)
     k, v = (torch.randn(1, 3, 1000, 64, generator=g, device=cuda_device)
             for _ in range(2))
     dout = torch.randn(1, 9, 1000, 64, generator=g, device=cuda_device)
+    q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
     run = lambda: _flash_grads(q, k, v, dout, lambda *t: flash_attention(
         *t, impl="kernel"))
     for a, b in zip(run(), run()):

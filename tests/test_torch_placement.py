@@ -170,6 +170,28 @@ def test_expected_fabric_is_the_reference():
         assert a.hop_bytes_placed == want["hop_bytes_placed"]
 
 
+@pytest.mark.parametrize("cell", ["place/torus-32x32x16/npb_dt-512/implicit",
+                                  "place/fattree-k32/npb_dt-512/faulty64"])
+def test_expected_implicit_cell_is_the_reference(cell):
+    """``chip_smoke.EXPECTED`` of each implicit placement cell is what the
+    reference's NumPy engine returns for the request the cell builds."""
+    from repro.core.engine import PlacementRequest as RefRequest
+    from repro.core.fattree import FatTreeTopology as RefFatTree
+    from repro.core.topology import TorusTopology as RefTorus
+
+    chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
+    comm = R_pat.npb_dt_like(512, seed=3).comm
+    if "torus" in cell:
+        req = RefRequest(comm=comm, topology=RefTorus((32, 32, 16)))
+    else:
+        topo = RefFatTree(32)
+        req = RefRequest(comm=comm, topology=topo,
+                         p_f=chip_smoke._faults(topo.n_nodes, 64))
+    plan = RefEngine(backend="numpy").place(req, policy="tofa",
+                                            rng=np.random.default_rng(0))
+    assert plan.hop_bytes == chip_smoke.EXPECTED[cell]
+
+
 def test_placement_targets_the_card(monkeypatch):
     """Without ``engine`` or ``device`` both entry points place on the
     shared default engine on ``cuda``: with no GPU they raise."""
