@@ -107,7 +107,9 @@ toolkit.  The script
    96, 112, 128, 192; each record beside its kernel's time in the
    previous design, ``was_ms``), and the SSD's four gradients
    (with a nonzero final-state gradient) at mamba2's and zamba2's
-   B 2 x 2048 in both types, each against the plain version's autograd
+   B 2 x 2048 in both types (each beside the CUDA-core design's time,
+   ``was_ms``, with each of its four launches' device ms, ``split_ms``),
+   each against the plain version's autograd
    gradients run in float64, at most twice as far as the same-dtype
    plain version's; two backwards bit-identical; the backward alone timed
    beside the plain version's backward and, for flash,
@@ -1021,8 +1023,8 @@ def event_table(events: list, title: str, rows: int = 25) -> str:
 
 # the CUDA kernels each backward launches, by name in a profiler trace
 FLASH_BWD_KERNEL_NAMES = ("dq_kernel", "dkdv_kernel")
-SSD_BWD_KERNEL_NAMES = ("state_grad_kernel", "tile_grad_kernel",
-                        "group_sum_kernel")
+SSD_BWD_KERNEL_NAMES = ("ssd_bwd_states_kernel", "ssd_bwd_pass_kernel",
+                        "ssd_bwd_tile_kernel", "ssd_bwd_group_sum_kernel")
 
 
 @contextlib.contextmanager
@@ -1884,6 +1886,13 @@ FLASH_BWD_WAS_MS = {("float32", FLASH_S4096): 9.713,
                     ("bfloat16", FLASH_MAIN): 3.434,
                     ("bfloat16", FLASH_PHI35): 18.30}
 SSD_BWD_SHAPES = (SSD_MAIN, SSD_ZAMBA2)
+# the CUDA-core design's device ms at those shapes (chip_smoke.py's
+# kernel/ssd_scan_bwd records of that design, NVIDIA H100 80GB HBM3,
+# 700 W), the `was_ms` of each record
+SSD_BWD_WAS_MS = {("float32", SSD_MAIN): 3.546,
+                  ("float32", SSD_ZAMBA2): 2.869,
+                  ("bfloat16", SSD_MAIN): 3.853,
+                  ("bfloat16", SSD_ZAMBA2): 3.103}
 
 
 def grad_errors(got, plain, exact, names) -> dict:
@@ -1907,6 +1916,32 @@ def within_twice_plain(errs: dict) -> bool:
 def backward_ms(run) -> float:
     """Device ms of ``run()``, a backward over a retained graph."""
     return cuda_ms(run, reps=5, trials=3, warmup=1, strict=False)[0]
+
+
+def kernel_split_ms(run, names, reps: int = 5) -> dict:
+    """Device ms of each kernel in ``names`` (launched once a call) in
+    ``reps`` more calls of ``run()`` under torch.profiler: the mean of
+    each name's events, summed over the raw events as ``profiled`` does.
+    Taken after the flash backward's records, a profile lost its first
+    three device events on an H100, so a name is averaged over the events
+    that arrived; one with none reads 0."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    total, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            for n in names:
+                if n in e.name():
+                    total[n] += e.duration_ns() / 1e6
+                    count[n] += 1
+    return {n: total[n] / count[n] if count[n] else 0.0 for n in names}
 
 
 def check_flash_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
@@ -2019,8 +2054,14 @@ def check_ssd_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
     B and C, with a nonzero gradient of the final state, against the
     chunked plain version's autograd run in float64, each at most twice
     as far from it as the same-dtype plain version's; two backwards
-    bit-identical; the backward alone timed beside the plain version's.
-    No PyTorch call computes it (library_ms null)."""
+    bit-identical; the backward alone timed beside the plain version's
+    and the previous design's (``was_ms``, ``SSD_BWD_WAS_MS``), and each of
+    its launches' device ms in five more calls under the profiler
+    (``split_ms``, by kernel name, ``kernel_split_ms``).  No PyTorch call computes it
+    (library_ms null).  float32 records carry two bounds, as the flash
+    backward's do: ``bound_ms`` (= ``bound_tc_ms``) at 3xTF32 on the tensor
+    cores, which the kernels run, and ``bound_cuda_core_ms`` at the CUDA
+    cores' float32 rate."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.ssd_scan import ops
@@ -2059,6 +2100,8 @@ def check_ssd_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
 
     ms, host, _ = cuda_ms(lambda: ops._backward(*ins, dy, dst, chunk),
                           reps=5, trials=3)
+    split = kernel_split_ms(lambda: ops._backward(*ins, dy, dst, chunk),
+                            SSD_BWD_KERNEL_NAMES)
     outs, leaves, _ = grads(plain, *ins)
     plain_ms = backward_ms(lambda: torch.autograd.grad(
         outs, leaves, (dy, dst), retain_graph=True))
@@ -2074,6 +2117,12 @@ def check_ssd_bwd(dev, dt: str, shape: tuple, tag: str) -> dict:
                   ssd_bwd_ops(B, H, G, S, P, N), dt)
     rec["bound_cuda_core_ms"] = bound_ms(
         nbytes, ssd_bwd_ops(B, H, G, S, P, N), "float32")[0]
+    if dt == "float32":
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            nbytes, 3 * ssd_bwd_ops(B, H, G, S, P, N), "tf32")
+        rec["bound_tc_ms"] = rec["bound_ms"]
+    rec["was_ms"] = SSD_BWD_WAS_MS.get((dt, shape))
+    rec["split_ms"] = split
     rec["shape"] = list(shape)
     ok = within_twice_plain(errs) and same
     emit({"phase": tag, "kernel": "ssd_scan_bwd", "dtype": dt,

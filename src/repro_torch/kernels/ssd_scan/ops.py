@@ -8,11 +8,22 @@ algorithm (:func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_folded`,
 the reference model's own arithmetic) for tensors on the CPU.
 :func:`ssd_scan_kernel` is the same entry point on the kernel's layout.
 For inputs that require grad (with grad enabled) the GPU path goes through
-:class:`_SSDScan`, an ``autograd.Function`` whose backward recomputes the
-states entering each tile with the forward's stages 1-2 and launches the
-backward kernels (``ssd_scan_bwd.cu``: state gradients, tile gradients,
-group sums).  The TPU kernel has no backward; the reference trains through
-its plain ``ssd_chunked``, which is what the CPU path here differentiates.
+:class:`_SSDScan`, an ``autograd.Function`` whose backward launches the
+backward kernels (``ssd_scan_bwd.cu``, on the tensor cores: bfloat16
+``mma.sync`` in bfloat16, 3xTF32 in float32): each tile's own state and
+state gradient, the passes that turn them into the state entering and the
+gradient of the state leaving each tile (the states recomputed from the
+inputs in their own type), the tile gradients with a group's heads four to
+a block, and the group sums.  Their bound at mamba2-2.7b's B 2 x 2048:
+in float32 operations, 28.7 GFLOP, 0.174 ms as 3xTF32; in bfloat16 its
+0.041 ms of bytes (the operations 0.029 ms).  The float32 scratch they
+stream (the states twice
+and the blocks' dB and dC partials, about 1.5 GB there) floors them near
+0.45 ms in both types.  The tile-gradient launch takes 153.5 KB of shared
+memory a block at mamba2's widths in float32 (105.5 KB in bfloat16, and
+at zamba2's in float32, where two blocks share an SM).  The TPU kernel has
+no backward; the reference trains through its plain ``ssd_chunked``,
+which is what the CPU path here differentiates.
 """
 from __future__ import annotations
 
@@ -46,9 +57,9 @@ def _bwd_lib() -> ctypes.CDLL:
     if not hasattr(lib, "_typed"):
         for name in ("ssd_scan_bwd_f32", "ssd_scan_bwd_bf16"):
             fn = getattr(lib, name)
-            fn.argtypes = [_P] * 12 + [_I64] * 7 + [_P]
+            fn.argtypes = [_P] * 11 + [_I64] * 7 + [_P]
             fn.restype = ctypes.c_int
-        lib.ssd_scan_bwd_scratch_floats.argtypes = [_I64] * 6
+        lib.ssd_scan_bwd_scratch_floats.argtypes = [_I64] * 7
         lib.ssd_scan_bwd_scratch_floats.restype = _I64
         lib._typed = True
     return lib
@@ -100,21 +111,20 @@ def _forward(xdt, dA, B, C, chunk: int):
 
 def _backward(xdt, dA, B, C, dy, dst, chunk: int):
     """The backward on the forward's inputs, y's gradient ``dy`` and the
-    final state's ``dst`` (or None): the states entering each tile again
-    from the forward's stages 1-2, in float32 whatever the inputs' type,
-    then the three backward launches.  Returns (dxdt, ddA, dB, dC) in the
-    inputs' dtypes."""
+    final state's ``dst`` (or None): four launches that recompute the
+    states entering each tile from the inputs in their own type and form
+    the gradients.  Returns (dxdt, ddA, dB, dC) in the inputs' dtypes."""
     b, H, S, P = xdt.shape
     G, N = B.shape[1], B.shape[3]
-    x32, B32 = (t if t.dtype == torch.float32 else t.float()
-                for t in (xdt, B))
-    # stages 1-2 read xdt, dA and B only; B32 stands in for C
-    _, _, hws = _run(x32, dA, B32, B32, chunk, stages=2)
     dy = torch.zeros_like(xdt) if dy is None else \
         dy.to(xdt.dtype).contiguous()
     gT = None if dst is None else dst.float().contiguous()
+    # the kernels read the inputs in 16-byte pieces: a view that starts off
+    # a 16-byte boundary is copied to fresh memory first
+    xdt, B, C, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (xdt, B, C, dy))
     lib = _bwd_lib()
-    scratch = torch.empty(lib.ssd_scan_bwd_scratch_floats(b, H, S, P, N,
+    scratch = torch.empty(lib.ssd_scan_bwd_scratch_floats(b, H, G, S, P, N,
                                                           chunk),
                           dtype=torch.float32, device=xdt.device)
     dxdt, dB, dC = torch.empty_like(xdt), torch.empty_like(B), \
@@ -125,9 +135,9 @@ def _backward(xdt, dA, B, C, dy, dst, chunk: int):
     dA32 = dA.float()                # exact for a bfloat16 dA
     launch(lib, fn, "ssd_scan_bwd", xdt.device, xdt.data_ptr(),
            dA32.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-           0 if gT is None else gT.data_ptr(), hws.data_ptr(),
-           scratch.data_ptr(), dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(),
-           dC.data_ptr(), b, H, G, S, P, N, chunk)
+           0 if gT is None else gT.data_ptr(), scratch.data_ptr(),
+           dxdt.data_ptr(), ddA.data_ptr(), dB.data_ptr(), dC.data_ptr(), b,
+           H, G, S, P, N, chunk)
     count_launch("ssd_scan_bwd", (b, H, G, S, P, N, chunk))
     return dxdt, ddA.to(dA.dtype), dB, dC
 

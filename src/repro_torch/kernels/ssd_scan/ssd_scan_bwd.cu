@@ -1,4 +1,4 @@
-// Mamba2 SSD chunked scan backward on Hopper, on the CUDA cores.
+// Mamba2 SSD chunked scan backward on Hopper's tensor cores.
 //
 // The TPU kernel `ssd_scan_tpu` (src/repro/kernels/ssd_scan/kernel.py) has
 // no backward: the reference trains through its plain `ssd_chunked` under
@@ -17,451 +17,1000 @@
 //   dC_t  = sum_{s<=t} e^{a_t-a_s} (dy_t.x_s) B_s + e^{a_t} h^T dy_t
 //   da_t  = sum_{s<=t} M_ts - sum_{s>=t} M_st + e^{a_t} dy_t.(h C_t) - w_t
 //           (+ e^{a_{Q-1}} <g, h> + sum_s w_s at t = Q-1)
-//   g_in  = e^{a_{Q-1}} g + sum_t e^{a_t} dy_t C_t^T
 //
 // with M_ts = e^{a_t-a_s} (C_t.B_s)(dy_t.x_s) and w_s = e^{a_{Q-1}-a_s}
 // x_s.(g B_s); ddA is the reverse cumulative sum of da within the tile.
+// The states come from the inputs alone (the forward keeps none):
 //
-// Launches (after the wrapper recomputes the states entering each tile with
-// the forward's own stages 1-2 in float32; they are not kept from the
-// forward, 168 MB a layer at mamba2-2.7b's B 2 x 2048):
+//   h_{c+1} = e^{a_{Q-1}} h_c + s_c,   s_c = sum_j e^{a_{Q-1}-a_j} x_j^T B_j
+//   g_{c-1} = e^{a_{Q-1}} g_c + r_c,   r_c = sum_t e^{a_t} dy_t^T C_t
 //
-//   1. state gradients, grid (16-row slabs of P, H, B): a block walks the
-//      tiles from the last to the first with its slab of g in registers,
-//      writing the gradient of the state leaving each tile to the scratch
-//      before folding in the tile (g_in above).  The walk is sequential
-//      over tiles; the slabs, heads and batch rows run in parallel;
-//   2. tile gradients, grid (tiles, H, B): a block stages its tile's x, dy,
-//      B and C, forms C B^T and dy x^T, the masked, decayed W = L o C B^T
-//      and V = L o dy x^T, and from them and the tile's g and h the four
-//      gradients above.  dx and ddA (the in-tile reverse sum folded in)
-//      are stored; dB and dC per head go to float32 scratch;
-//   3. group sums: dB and dC of each group as the sum over its heads, in
-//      head order, stored in the inputs' type.  No atomics anywhere, so two
-//      runs give the same bits.
+// (h_0 = 0, g of the last tile = gT), the forward's stages 1-2 and their
+// mirror image for the gradient.
 //
-// Arithmetic: float32 everywhere (fmaf), whatever the input type;
-// bfloat16 inputs are widened as they are staged and the gradients stored
-// in their type (dA's gradient in float32).  Every product is a
-// register-tiled outer product from shared memory: 256 threads in a 16 x 16
-// grid, a thread holding rows ty + 16 u and columns tx + 16 v of an output,
-// every staged matrix row-major with an odd row length, so a warp's 16
-// column reads fall on 16 banks and its row reads are broadcasts.
+// Launches (chunk-parallel, as the forward's stages 1-2: the sequential
+// walk over the tiles that came before took 0.73-1.05 ms of 2.9-3.9 on an
+// H100, tools/ssd_bwd_split.py):
+//
+//   1. tile states, grid (tiles, H, B): a block stages its tile's B and C
+//      (cp.async) and its decayed rows e^{a_{Q-1}-a_j} x_j and e^{a_t} dy_t
+//      (16-byte loads, all issued before the first is stored), and writes
+//      the tile's own s_c and r_c (P x N each), e^{a_{Q-1}}, and a_t with
+//      its exponentials for launch 3;
+//   2. state passing, one (p, n) element a thread, grid (P N / 256, B H, 2):
+//      z = 0 walks the tiles forward and overwrites s_c with h_c, z = 1
+//      walks them backward from gT and overwrites r_c with g_c, the loads of
+//      the next 8 tiles in flight before this one is stored;
+//   3. tile gradients, grid (tiles, heads / hpb, B): a block serves hpb =
+//      min(4, H / G) consecutive heads of one group (the last block of a
+//      group fewer where hpb does not divide H / G), stages the tile's B
+//      and C and forms C B^T once for all of them, and for each head, in
+//      order, stages x, dy, g and the tile's a_t (cp.async), forms dy x^T,
+//      the masked, decayed W = L o C B^T and V = L o dy x^T, swaps h in
+//      over g, and writes dx and ddA (da and its reverse sum by one warp,
+//      two rows a lane); dB and dC are summed over the block's heads in
+//      head order in registers and written once a block (float32,
+//      (B, H / hpb, S, N));
+//   4. group sums: dB and dC of each group as the sum of its blocks'
+//      partials, in order, stored in the inputs' type.
+//   No atomics anywhere: two runs give the same bits.
+//
+// Arithmetic: every product on the tensor cores.  8 warps; a product's
+// output is cut in 16-row tiles (one m16 row of mma tiles a warp) and
+// column ranges (the tile gradients: 4 row groups x 2 column halves; as
+// 4 x 4 with 16 warps they took up to 31 % longer), each warp loading its
+// fragments from shared memory with scalar loads in the PTX fragment
+// layouts (row g = lane / 4, column t4 = lane % 4).  Each k-step's
+// products are summed in a fresh accumulator and added to the output in
+// float32 (the tensor cores truncate what a sum drops: a long chain in one
+// accumulator is biased toward zero, which moved a held training step in
+// flash_attention_bwd.cu).
+//
+// bfloat16: `mma.sync.m16n8k16`, float32 accumulators.  The inputs (x,
+//   dy, B, C) are bfloat16 already and go in as they are.  An operand
+//   formed in float32 (the decayed rows, W, V, g and h) goes in as a
+//   bfloat16 pair, hi = bf16(v) and lo = bf16(v - hi), two products (lo,
+//   then hi): rounded to one bfloat16 the emulation in
+//   tests/test_torch_backward.py put dx at up to 2.6x the plain version's
+//   float64-referenced error against the 2x rule; as pairs, 1.00x.  Input
+//   tiles are staged as bfloat16 rows padded by 8 elements, so a lane's
+//   32-bit load of two k-neighbours falls on its own bank.
+// float32: 3xTF32 on `mma.sync.m16n8k8`, flash_attention.cu's split: x =
+//   big + small, big = tf32_rna(x), small = tf32_rna(x - big), a product
+//   small x big + big x small + big x big: float32 accuracy whatever
+//   `allow_tf32` says.  Operands are split in registers as their fragments
+//   are loaded.  Rows padded by 4 floats (padding each buffer for the
+//   fragment loads its products make most, 4 or 8, changed nothing).
+// The sums (the state passing, the head and group sums, da and its reverse
+// cumulative sum, w and <g, h>) are float32 on the CUDA cores: warp
+// shuffles in fixed trees, then shared memory in warp order.
 //
 // What bounds it: operations.  Per (b, group, tile) C B^T once, and per
 // (b, h, tile) dy x^T and the six products dx, dB, dC, g B^T, x g and
-// dy h (Q Q P or Q P N multiply-adds each), plus the state gradient and
-// the forward's chunk states again (Q P N each).  Counted at the tile that
-// needs the least (chip_smoke.py's `ssd_bwd_ops`), mamba2-2.7b's shape
-// (B 2, H 80, G 1, S 2048, P 64, N 128) needs 28.7 GFLOP: 0.428 ms at the
-// non-tensor float32 rate.  This design runs it at tiles of 64 on the
-// CUDA cores: 3.54 ms on an H100 (12 % of that bound).
+// dy h (Q Q P or Q P N multiply-adds each), plus the two tile states
+// (Q P N each).  Counted at the tile that needs the least (chip_smoke.py's
+// `ssd_bwd_ops`), mamba2-2.7b's shape (B 2, H 80, G 1, S 2048, P 64, N 128)
+// needs 28.7 GFLOP: in float32 0.174 ms as 3xTF32 at the card's 495 TFLOP/s
+// (0.428 ms at the CUDA cores' float32 rate), in bfloat16 0.029 ms at 989
+// TFLOP/s, under the 0.041 ms its 136 MB of inputs and outputs take at
+// 3.35 TB/s.  This design computes the whole Q x Q products, but for the
+// three with a triangular operand (W^T dy, V^T C, V B), whose k-steps stop
+// at the warp's diagonal block.  With the products removed the tile
+// gradients took 34-42 % of their time on an H100 (the rest is the
+// products: their fragment loads, splits and sums in registers, not the
+// tensor cores, set the pace), and without their per-head loads 9-19 %
+// less.
+//
+// Scratch it streams (float32, allocated by the wrapper,
+// `ssd_scan_bwd_scratch_floats`): the tile states (B, H, tiles, P, N)
+// twice (s / h and r / g: 168 MB each at the main shape), written by 1,
+// read and rewritten by 2 and read by 3; the block partials of dB and dC,
+// (B, H / hpb, S, N) each (42 MB each), written by 3 and read by 4; the
+// tiles' a_t and exponentials (5 MB): about 1.5 GB, 0.45 ms at 3.35 TB/s,
+// the floor of this design in both types.
 //
 // Instances: P and N padded to (64, 64), (64, 128) or (128, 128) with zero
-// rows and columns (zamba2, mamba2, the rest).  Shared memory of the tile
-// kernel: 108 KB, 158 KB and 224 KB.
+// rows and columns (zamba2, mamba2, the rest).  Shared memory (KB) of the
+// tile gradients: float32 105.5 / 153.5 / 218.5, bfloat16 73.5 / 105.5 /
+// 154.5; of the tile states: float32 69 / 101 / 133, bfloat16 53 / 69 /
+// 101.  The tile gradients keep C B^T and the block's dB and dC sums in
+// registers across its heads (224-255 registers a thread; 196 bytes of
+// spills in bfloat16 at (128, 128)): one block an SM, but two at (64, 64)
+// in float32, where shared memory allows it and ptxas's 128-register cap
+// (132 bytes of spills) paid, 15 % faster at zamba2's shape; in bfloat16
+// the same cap cost 12-40 %.  The tile states run two or three
+// blocks an SM, as many as their shared memory allows (up to three); with
+// their paired stores that took 24 % off their time at mamba2's shape in
+// float32, 39 % in bfloat16.  chip_smoke.py prints ptxas's report of every
+// kernel.
+//
+// The entry points return the CUDA error code of the first launch that
+// fails so the wrapper raises; the kernels allocate nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;           // 8 warps (tile states)
+constexpr int kWarps = kThreads / 32;
+// tile gradients: 4 groups of 16 rows times kTileCols column groups, a
+// warp each
+constexpr int kTileCols = 2;
+constexpr int kTileWarps = 4 * kTileCols;
+constexpr int kTileThreads = 32 * kTileWarps;
+constexpr int kT = 64;                  // rows of a tile, at most
+constexpr int kMaxPN = 128;             // P and N
+constexpr int kMaxHeadsPerBlock = 4;    // heads of a tile-gradient block
+constexpr int kBatch = 8;               // state passing: tiles loaded ahead
+constexpr size_t kSmemPerSM = 232448;   // shared memory an SM's blocks share
 
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kT = 64;         // rows of a tile, at most
-constexpr int kMaxPN = 128;    // P and N
-constexpr int kSlab = 16;      // rows of P a state-gradient block owns
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16(x);
+// blocks an SM can hold by shared memory (1 KB of each kept by the
+// system), at most `most`: the kernels' __launch_bounds__ minimum, so
+// ptxas keeps their registers within that many blocks' share
+constexpr int blocks_by_smem(size_t bytes, int most) {
+  return static_cast<int>(kSmemPerSM / (bytes + 1024)) < most
+             ? static_cast<int>(kSmemPerSM / (bytes + 1024))
+             : most;
 }
 
 struct Shape {
-  int H, G, S, P, N, Tq, nT;
+  int H, G, S, P, N, Tq, nT, hpb, nhb;  // nhb: tile blocks a group
 };
 
-// rows [0, rows) x columns [0, cols) of a row-major (., cols) matrix into
-// dst[r][c] (kT rows of LD floats); the rest of the kT x (LD - 1) block is
-// zero
-template <int LD, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int rows,
-                                      int cols, int tid) {
-  for (int e = tid; e < kT * (LD - 1); e += kThreads) {
-    const int r = e / (LD - 1), c = e % (LD - 1);
-    dst[r * LD + c] = r < rows && c < cols
-                          ? to_f32(src[static_cast<int64_t>(r) * cols + c])
-                          : 0.f;
+// an input element as staged: float32 as it is, bfloat16 as its 16 bits
+template <bool F32>
+using In = typename std::conditional<F32, float, uint16_t>::type;
+
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(uint16_t x) {
+  return __uint_as_float(static_cast<uint32_t>(x) << 16);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(uint16_t* p, float x) {
+  *p = __bfloat16_as_ushort(__float2bfloat16(x));
+}
+
+// row[c] = a and row[c + 1] = b where they are < cols (c even): one 8- or
+// 4-byte store where cols is even, so a warp's stores to a row are whole
+// sectors
+__device__ __forceinline__ void put_pair(float* row, int c, int cols, float a,
+                                         float b) {
+  if (cols % 2 == 0 && c + 1 < cols) {
+    *reinterpret_cast<float2*>(row + c) = make_float2(a, b);
+  } else {
+    if (c < cols) row[c] = a;
+    if (c + 1 < cols) row[c + 1] = b;
+  }
+}
+__device__ __forceinline__ void put_pair(uint16_t* row, int c, int cols,
+                                         float a, float b) {
+  if (cols % 2 == 0 && c + 1 < cols) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+    *reinterpret_cast<uint32_t*>(row + c) =
+        *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    if (c < cols) put(row + c, a);
+    if (c + 1 < cols) put(row + c + 1, b);
   }
 }
 
-// cs[t] = dA[0] + ... + dA[t] over the tile's kT rows (dA 0 past `rows`),
-// summed in row order by one thread; visible to the block on return
-__device__ __forceinline__ void tile_cumsum(float* cs, const float* dA,
-                                            int rows, int tid) {
-  if (tid == 0) {
-    float run = 0.f;
-    for (int t = 0; t < kT; ++t) {
-      if (t < rows) run += dA[t];
-      cs[t] = run;
+// ------------------------------------------------------------ PTX helpers
+// c += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 out
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bfloat16 in, float32 out
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 to nearest, ties away from zero (`cvt.rna.tf32.f32`)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + what neither keeps (about 2^-22 of x), both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// the bfloat16 pairs (hi, lo) of two float32 values (first in the low
+// half), hi = bf16(x) and lo = bf16(x - hi): x to about 2^-17 of itself
+__device__ __forceinline__ void pair_bf16(float x0, float x1, uint32_t& hi,
+                                          uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      x0 - __bfloat162float(h.x), x1 - __bfloat162float(h.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// 16 bytes global -> shared, asynchronously; with !valid the 16 bytes are
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// every copy this thread issued has landed (visible to the block after a
+// __syncthreads)
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+// ------------------------------------------------------- warp products
+// A product operand in shared memory: element (i, k) of its m (or n) index
+// i and k-index k at p[i * ld + k] (KC, k contiguous) or p[k * ld + i]
+template <typename E, bool KC>
+struct Op {
+  const E* p;
+  int ld;
+  __device__ __forceinline__ E at(int i, int k) const {
+    return KC ? p[i * ld + k] : p[k * ld + i];
+  }
+};
+
+// the 32-bit register of elements (i, k) and (i, k + 1), k even: a
+// bfloat16 input as it is, a float32 operand as its bfloat16 pair
+template <bool KC>
+__device__ __forceinline__ uint32_t reg(const Op<uint16_t, KC>& o, int i,
+                                        int k) {
+  if (KC) return *reinterpret_cast<const uint32_t*>(o.p + i * o.ld + k);
+  return static_cast<uint32_t>(o.at(i, k)) |
+         static_cast<uint32_t>(o.at(i, k + 1)) << 16;
+}
+template <bool KC>
+__device__ __forceinline__ void reg(const Op<float, KC>& o, int i, int k,
+                                    uint32_t& hi, uint32_t& lo) {
+  float x0, x1;
+  if (KC) {
+    const float2 v = *reinterpret_cast<const float2*>(o.p + i * o.ld + k);
+    x0 = v.x, x1 = v.y;
+  } else {
+    x0 = o.at(i, k), x1 = o.at(i, k + 1);
+  }
+  pair_bf16(x0, x1, hi, lo);
+}
+
+// acc[j] += A[m0 + (0..15)][k] B[k][n0 + 8 j + (0..7)] over k in [k0, k1)
+// (multiples of 16), A(i, k) = a.at(i, k), B(k, n) = b.at(n, k).  F32:
+// 3xTF32 m16n8k8, every operand split; otherwise bfloat16 m16n8k16 with a
+// float32 operand (at most one of the two) as its bfloat16 pair.  Each
+// k-step of each output tile is summed in a fresh accumulator.
+template <bool F32, int NT, typename EA, bool KA, typename EB, bool KB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4],
+                                         const Op<EA, KA>& a,
+                                         const Op<EB, KB>& b, int m0, int n0,
+                                         int k0, int k1, int g, int t4) {
+  const int i0 = m0 + g, i1 = i0 + 8;
+  if constexpr (F32) {
+    for (int kk = k0; kk < k1; kk += 8) {
+      uint32_t ab[4], as[4];
+      split_tf32(a.at(i0, kk + t4), ab[0], as[0]);
+      split_tf32(a.at(i1, kk + t4), ab[1], as[1]);
+      split_tf32(a.at(i0, kk + t4 + 4), ab[2], as[2]);
+      split_tf32(a.at(i1, kk + t4 + 4), ab[3], as[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + g;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(b.at(n, kk + t4), bb0, bs0);
+        split_tf32(b.at(n, kk + t4 + 4), bb1, bs1);
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(w, as, bb0, bb1);
+        mma_tf32(w, ab, bs0, bs1);
+        mma_tf32(w, ab, bb0, bb1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += w[e];
+      }
     }
+  } else {
+    constexpr bool kPairA = std::is_same<EA, float>::value;
+    constexpr bool kPairB = std::is_same<EB, float>::value;
+    static_assert(!(kPairA && kPairB), "one bfloat16 pair a product");
+    const int c0 = 2 * t4, c1 = c0 + 8;
+    for (int kk = k0; kk < k1; kk += 16) {
+      uint32_t ah[4], al[4];
+      if constexpr (kPairA) {
+        reg(a, i0, kk + c0, ah[0], al[0]);
+        reg(a, i1, kk + c0, ah[1], al[1]);
+        reg(a, i0, kk + c1, ah[2], al[2]);
+        reg(a, i1, kk + c1, ah[3], al[3]);
+      } else {
+        ah[0] = reg(a, i0, kk + c0);
+        ah[1] = reg(a, i1, kk + c0);
+        ah[2] = reg(a, i0, kk + c1);
+        ah[3] = reg(a, i1, kk + c1);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + 8 * j + g;
+        float w[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (kPairB) {
+          uint32_t bh0, bl0, bh1, bl1;
+          reg(b, n, kk + c0, bh0, bl0);
+          reg(b, n, kk + c1, bh1, bl1);
+          mma_bf16(w, ah, bl0, bl1);
+          mma_bf16(w, ah, bh0, bh1);
+        } else {
+          const uint32_t b0 = reg(b, n, kk + c0), b1 = reg(b, n, kk + c1);
+          if constexpr (kPairA) mma_bf16(w, al, b0, b1);
+          mma_bf16(w, ah, b0, b1);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += w[e];
+      }
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// ---------------------------------------------------------- tile helpers
+// a + b = s + e exactly (Knuth's two-sum)
+__device__ __forceinline__ void two_sum(float a, float b, float& s,
+                                        float& e) {
+  s = a + b;
+  const float bb = s - a;
+  e = (a - (s - bb)) + (b - bb);
+}
+
+// cs[t] + csl[t] = dA[0] + ... + dA[t] over the tile's rows, dA 0 past
+// `rows`: two warps scan 32 rows each with shuffles, the second then adds
+// the first's total, every add a two-sum whose rounding is carried in csl.
+// A plain tree scan rounds cs_t and cs_s apart, so e^{cs_t - cs_s} of
+// neighbouring rows carried ~|cs| 2^-24 of error, not ~|cs_t - cs_s| 2^-24
+// as a sequential sum's: it put dx at 1.8x the plain version's
+// float64-referenced error in a CPU run of this source.  e^{cs} to ex and
+// e^{cs[kT-1] - cs} to dec.  Ends with all of it visible to the block.
+__device__ __forceinline__ void tile_cumsum(float* cs, float* csl, float* ex,
+                                            float* dec, const float* dA,
+                                            int rows, int tid) {
+  if (tid < kT) {
+    float v = tid < rows ? dA[tid] : 0.f, lo = 0.f;
+    const int lane = tid & 31;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v, off);
+      const float ul = __shfl_up_sync(0xffffffffu, lo, off);
+      if (lane >= off) {
+        float e;
+        two_sum(v, u, v, e);
+        lo += ul + e;
+      }
+    }
+    cs[tid] = v;
+    csl[tid] = lo;
+  }
+  __syncthreads();
+  if (tid >= 32 && tid < kT) {
+    float v, e;
+    two_sum(cs[tid], cs[31], v, e);
+    cs[tid] = v;
+    csl[tid] += csl[31] + e;
+  }
+  __syncthreads();
+  if (tid < kT) {
+    ex[tid] = expf(cs[tid] + csl[tid]);
+    dec[tid] = expf((cs[kT - 1] - cs[tid]) + (csl[kT - 1] - csl[tid]));
   }
   __syncthreads();
 }
 
-// acc[u][v] += sum_{k < K} A(ty + 16 u, k) B(k, tx + 16 v), A(m, k) =
-// a[m * am + k * ak], B(k, n) = b[k * bk + n * bn]
-template <int TM, int TN>
-__device__ __forceinline__ void gemm(float (&acc)[TM][TN], const float* a,
-                                     int am, int ak, const float* b, int bk,
-                                     int bn, int K, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float x[TM], y[TN];
-#pragma unroll
-    for (int u = 0; u < TM; ++u) x[u] = a[(ty + 16 * u) * am + k * ak];
-#pragma unroll
-    for (int v = 0; v < TN; ++v) y[v] = b[k * bk + (tx + 16 * v) * bn];
-#pragma unroll
-    for (int u = 0; u < TM; ++u)
-#pragma unroll
-      for (int v = 0; v < TN; ++v) acc[u][v] = fmaf(x[u], y[v], acc[u][v]);
-  }
-}
-
-template <int TM, int TN>
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int u = 0; u < TM; ++u)
-#pragma unroll
-    for (int v = 0; v < TN; ++v) acc[u][v] = 0.f;
-}
-
-// part[m][0..15] -> out[m] = sum over the 16 in order, for m < kT; the
-// partials were written by the 16 threads of a row of the thread grid
-__device__ __forceinline__ float sum16(const float* part, int m) {
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < 16; ++k) s += part[m * 16 + k];
-  return s;
-}
-
-// ----------------------------------------------- 1. state gradients
-// gws[bh][c] (P x N, [p][n]) <- the gradient of the state leaving tile c
-template <int KN, typename T>
-__global__ void __launch_bounds__(kThreads)
-    state_grad_kernel(const T* __restrict__ dy, const float* __restrict__ dA,
-                      const T* __restrict__ Cm, const float* __restrict__ gT,
-                      float* __restrict__ gws, Shape d) {
-  constexpr int LDN = KN + 1, LDY = kSlab + 1, TN = KN / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Cs = smem;              // kT x LDN: C rows t
-  float* Ys = Cs + kT * LDN;     // kT x LDY: e^{a_t} dy[t][p0 + p]
-  float* cs = Ys + kT * LDY;     // kT
-  float* ex = cs + kT;           // kT
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int p0 = blockIdx.x * kSlab, h = blockIdx.y, b = blockIdx.z;
-  const int grp = h / (d.H / d.G);
-  const int64_t bh = static_cast<int64_t>(b) * d.H + h;
-  const int p = p0 + ty;  // the thread's state row
-
-  float g[TN];
-#pragma unroll
-  for (int v = 0; v < TN; ++v) {
-    const int n = tx + 16 * v;
-    g[v] = gT && p < d.P && n < d.N
-               ? gT[(bh * d.P + p) * d.N + n]
-               : 0.f;
-  }
-  for (int c = d.nT - 1; c >= 0; --c) {
-    const int s0 = c * d.Tq, rows = min(d.Tq, d.S - s0);
-    float* gb = gws + ((bh * d.nT + c) * d.P) * d.N;
-#pragma unroll
-    for (int v = 0; v < TN; ++v) {
-      const int n = tx + 16 * v;
-      if (p < d.P && n < d.N) gb[static_cast<int64_t>(p) * d.N + n] = g[v];
+// rows [0, rows) x columns [0, cols) of a row-major (., cols) matrix into
+// dst[r][c] (ROWS rows of LD elements, WIDTH of them written) as staged;
+// the rest of the ROWS x WIDTH block 0.  Rows whose length is a multiple
+// of 16 bytes go as cp.async copies of 16 bytes (the caller waits with
+// cp_async_wait_all); other shapes element by element.
+template <int ROWS, int WIDTH, int LD, int NTH = kThreads, typename E>
+__device__ __forceinline__ void stage(E* dst, const E* src, int rows,
+                                      int cols, int tid) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  if (cols % kPer == 0) {
+    for (int e = tid; e < ROWS * WIDTH / kPer; e += NTH) {
+      const int r = e / (WIDTH / kPer), c = (e % (WIDTH / kPer)) * kPer;
+      const bool in = r < rows && c < cols;
+      cp_async16(dst + r * LD + c,
+                 in ? src + static_cast<int64_t>(r) * cols + c : src, in);
     }
-    __syncthreads();  // the previous tile's operands are consumed
-    tile_cumsum(cs, dA + bh * d.S + s0, rows, tid);
-    if (tid < kT) ex[tid] = tid < rows ? expf(cs[tid]) : 0.f;
-    __syncthreads();
-    stage<LDN>(Cs, Cm + ((static_cast<int64_t>(b) * d.G + grp) * d.S + s0) *
-                            d.N,
-               rows, d.N, tid);
-    // the slab's columns of dy, each row times e^{a_t}
-    for (int e = tid; e < kT * kSlab; e += kThreads) {
-      const int t = e / kSlab, q = e % kSlab;
-      Ys[t * LDY + q] =
-          t < rows && p0 + q < d.P
-              ? ex[t] * to_f32(dy[(bh * d.S + s0 + t) * d.P + p0 + q])
+  } else {
+    for (int e = tid; e < ROWS * WIDTH; e += NTH) {
+      const int r = e / WIDTH, c = e % WIDTH;
+      dst[r * LD + c] = r < rows && c < cols
+                            ? src[static_cast<int64_t>(r) * cols + c]
+                            : E(0);
+    }
+  }
+}
+
+// the floats of a 16-byte piece of staged elements
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    f[2 * q] = __uint_as_float(w[q] << 16);
+    f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+
+// kT rows as `stage` reads them into float32, row r times scale[r]: a
+// thread's 16-byte loads are all issued before the first is stored
+template <int WIDTH, int LD, typename E>
+__device__ __forceinline__ void stage_scaled(float* dst, const E* src,
+                                             int rows, int cols,
+                                             const float* scale, int tid) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(E));
+  constexpr int kEach = kT * WIDTH / kPer / kThreads;
+  if (cols % kPer == 0) {
+    uint4 v[kEach];
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = tid + u * kThreads;
+      const int r = e / (WIDTH / kPer), c = (e % (WIDTH / kPer)) * kPer;
+      v[u] = r < rows && c < cols
+                 ? *reinterpret_cast<const uint4*>(
+                       src + static_cast<int64_t>(r) * cols + c)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kEach; ++u) {
+      const int e = tid + u * kThreads;
+      const int r = e / (WIDTH / kPer), c = (e % (WIDTH / kPer)) * kPer;
+      float f[kPer];
+      unpack(v[u], f);
+      const float sc = scale[r];
+#pragma unroll
+      for (int q = 0; q < kPer; q += 4)
+        *reinterpret_cast<float4*>(dst + r * LD + c + q) =
+            make_float4(f[q] * sc, f[q + 1] * sc, f[q + 2] * sc,
+                        f[q + 3] * sc);
+    }
+  } else {
+    for (int e = tid; e < kT * WIDTH; e += kThreads) {
+      const int r = e / WIDTH, c = e % WIDTH;
+      dst[r * LD + c] =
+          r < rows && c < cols
+              ? val(src[static_cast<int64_t>(r) * cols + c]) * scale[r]
               : 0.f;
     }
-    __syncthreads();
-    const float decay = expf(cs[kT - 1]);
-#pragma unroll
-    for (int v = 0; v < TN; ++v) g[v] *= decay;
-    // g[p][n] += sum_t Ys[t][p] C[t][n]
-#pragma unroll 4
-    for (int t = 0; t < rows; ++t) {
-      const float y = Ys[t * LDY + ty];
-#pragma unroll
-      for (int v = 0; v < TN; ++v)
-        g[v] = fmaf(y, Cs[t * LDN + tx + 16 * v], g[v]);
-    }
   }
 }
 
-// --------------------------------------------------- 2. tile gradients
-template <int KP, int KN>
-struct GradSmem {
-  static constexpr int kLdN = KN + 1, kLdP = KP + 1, kLdQ = kT + 1;
-  static constexpr size_t kFloats =
-      2 * kT * kLdN + 2 * kT * kLdP + kT * kLdQ + KP * kLdN  // B C x dy W g|h
-      + 5 * kT                                // cs, ex, dec, da, w
-      + 2 * kT * 16 + kThreads;               // partial sums
+// the P x N state at src over the KP x KN block at Ms (rows of LD floats,
+// zero past P and N), returning this thread's share of the dot product of
+// the two; a thread's 16-byte loads go four at a time
+template <int KP, int KN, int LD, int NTH>
+__device__ __forceinline__ float swap_in(float* Ms, const float* src, int P,
+                                         int N, int tid) {
+  float dot = 0.f;
+  if (N % 4 == 0) {
+    constexpr int kEach = KP * KN / 4 / NTH, kAhead = kEach < 4 ? kEach : 4;
+#pragma unroll
+    for (int u0 = 0; u0 < kEach; u0 += kAhead) {
+      float4 v[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int e = tid + (u0 + u) * NTH;
+        const int p = e / (KN / 4), n = (e % (KN / 4)) * 4;
+        v[u] = p < P && n < N
+                   ? *reinterpret_cast<const float4*>(src + p * N + n)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int e = tid + (u0 + u) * NTH;
+        float4* m = reinterpret_cast<float4*>(
+            Ms + (e / (KN / 4)) * LD + (e % (KN / 4)) * 4);
+        const float4 o = *m;
+        dot = fmaf(o.x, v[u].x, dot);
+        dot = fmaf(o.y, v[u].y, dot);
+        dot = fmaf(o.z, v[u].z, dot);
+        dot = fmaf(o.w, v[u].w, dot);
+        *m = v[u];
+      }
+    }
+  } else {
+    for (int e = tid; e < KP * KN; e += NTH) {
+      const int p = e / KN, n = e % KN;
+      const float v = p < P && n < N ? src[p * N + n] : 0.f;
+      dot = fmaf(Ms[p * LD + n], v, dot);
+      Ms[p * LD + n] = v;
+    }
+  }
+  return dot;
+}
+
+// ------------------------------------------------------- 1. tile states
+template <bool F32, int KP, int KN>
+struct StateSmem {
+  static constexpr int kLdX = KP + 4;                // float32 decayed rows
+  static constexpr int kLdN = KN + (F32 ? 4 : 8);    // inputs B, C
+  static constexpr size_t kBytes =
+      sizeof(float) * (2 * kT * kLdX + 4 * kT) +
+      sizeof(In<F32>) * 2 * kT * kLdN;
 };
 
-template <int KP, int KN, typename T>
-__global__ void __launch_bounds__(kThreads)
-    tile_grad_kernel(const T* __restrict__ xdt, const float* __restrict__ dA,
-                     const T* __restrict__ Bm, const T* __restrict__ Cm,
-                     const T* __restrict__ dy, const float* __restrict__ hws,
-                     const float* __restrict__ gws, T* __restrict__ dx,
-                     float* __restrict__ ddA, float* __restrict__ dBh,
-                     float* __restrict__ dCh, Shape d) {
-  using Sm = GradSmem<KP, KN>;
-  constexpr int LDN = Sm::kLdN, LDP = Sm::kLdP, LDQ = Sm::kLdQ;
-  constexpr int TP = KP / 16, TN = KN / 16, TQ = kT / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* Bs = smem;             // kT x LDN: B[s][n]
-  float* Cs = Bs + kT * LDN;    // kT x LDN: C[t][n]
-  float* Xs = Cs + kT * LDN;    // kT x LDP: x[s][p]
-  float* Ys = Xs + kT * LDP;    // kT x LDP: dy[t][p]
-  float* Wq = Ys + kT * LDP;    // kT x LDQ: W[t][s], then V[t][s]
-  float* Ms = Wq + kT * LDQ;    // KP x LDN: g[p][n], then h[p][n]
-  float* cs = Ms + KP * LDN;    // kT: a_t
-  float* ex = cs + kT;          // kT: e^{a_t}
-  float* dec = ex + kT;         // kT: e^{a_{Q-1} - a_t}
-  float* da = dec + kT;         // kT
-  float* wv = da + kT;          // kT: w_s
-  float* part = wv + kT;        // kT x 16
-  float* part2 = part + kT * 16;  // kT x 16
-  float* red = part2 + kT * 16;   // kThreads
+template <bool F32, int KP, int KN>
+__global__ void __launch_bounds__(
+    kThreads, blocks_by_smem(StateSmem<F32, KP, KN>::kBytes, 3))
+    ssd_bwd_states_kernel(const In<F32>* __restrict__ xdt,
+                          const float* __restrict__ dA,
+                          const In<F32>* __restrict__ Bm,
+                          const In<F32>* __restrict__ Cm,
+                          const In<F32>* __restrict__ dy,
+                          float* __restrict__ hs, float* __restrict__ gs,
+                          float* __restrict__ decay, float* __restrict__ sums,
+                          Shape d) {
+  using E = In<F32>;
+  using Sm = StateSmem<F32, KP, KN>;
+  constexpr int LDX = Sm::kLdX, LDN = Sm::kLdN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // every tile starts on 16 bytes (the cp.async copies' alignment)
+  float* Xd = reinterpret_cast<float*>(smem_raw);  // kT x LDX: dec_j x[j][p]
+  float* Yd = Xd + kT * LDX;                        // kT x LDX: ex_t dy[t][p]
+  float* cs = Yd + kT * LDX;                        // a_t: cs + csl
+  float* csl = cs + kT;
+  float* ex = csl + kT;
+  float* dec = ex + kT;
+  E* Bs = reinterpret_cast<E*>(dec + kT);           // kT x LDN: B[j][n]
+  E* Cs = Bs + kT * LDN;                            // kT x LDN: C[t][n]
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int grp = h / (d.H / d.G);
   const int s0 = c * d.Tq, rows = min(d.Tq, d.S - s0);
   const int64_t bh = static_cast<int64_t>(b) * d.H + h;
   const int64_t bg = (static_cast<int64_t>(b) * d.G + grp) * d.S + s0;
 
-  tile_cumsum(cs, dA + bh * d.S + s0, rows, tid);
-  if (tid < kT) {
-    ex[tid] = expf(cs[tid]);
-    dec[tid] = expf(cs[kT - 1] - cs[tid]);
-  }
-  stage<LDN>(Bs, Bm + bg * d.N, rows, d.N, tid);
-  stage<LDN>(Cs, Cm + bg * d.N, rows, d.N, tid);
-  stage<LDP>(Xs, xdt + (bh * d.S + s0) * d.P, rows, d.P, tid);
-  stage<LDP>(Ys, dy + (bh * d.S + s0) * d.P, rows, d.P, tid);
+  stage<kT, KN, LDN>(Bs, Bm + bg * d.N, rows, d.N, tid);
+  stage<kT, KN, LDN>(Cs, Cm + bg * d.N, rows, d.N, tid);
+  tile_cumsum(cs, csl, ex, dec, dA + bh * d.S + s0, rows, tid);
+  stage_scaled<KP, LDX>(Xd, xdt + (bh * d.S + s0) * d.P, rows, d.P, dec,
+                        tid);
+  stage_scaled<KP, LDX>(Yd, dy + (bh * d.S + s0) * d.P, rows, d.P, ex, tid);
+  cp_async_wait_all();
   __syncthreads();
 
-  // CB[t][s] = C_t . B_s and DX[t][s] = dy_t . x_s, t = ty + 16 u,
-  // s = tx + 16 v
-  float cb[TQ][TQ], dxm[TQ][TQ];
-  zero(cb);
-  zero(dxm);
-  gemm(cb, Cs, LDN, 1, Bs, 1, LDN, d.N, ty, tx);
-  gemm(dxm, Ys, LDP, 1, Xs, 1, LDP, d.P, ty, tx);
-  // W = L o CB to shared memory, V = L o DX kept, M = W o DX summed by row
-  // (to da_t) and by column (from da_s)
-  float vv[TQ][TQ];
-#pragma unroll
-  for (int u = 0; u < TQ; ++u) {
-    const int t = ty + 16 * u;
-    float rsum = 0.f;
-#pragma unroll
-    for (int v = 0; v < TQ; ++v) {
-      const int s = tx + 16 * v;
-      const float l = s <= t ? expf(cs[t] - cs[s]) : 0.f;
-      const float w = l * cb[u][v];
-      Wq[t * LDQ + s] = w;
-      vv[u][v] = l * dxm[u][v];
-      cb[u][v] = w * dxm[u][v];  // M
-      rsum += cb[u][v];
-    }
-    part[t * 16 + tx] = rsum;
-  }
-#pragma unroll
-  for (int v = 0; v < TQ; ++v) {
-    float csum = 0.f;
-#pragma unroll
-    for (int u = 0; u < TQ; ++u) csum += cb[u][v];
-    part2[(tx + 16 * v) * 16 + ty] = csum;
-  }
-  // g, the gradient of the state leaving this tile, as [p][n]
-  {
-    const float* gb = gws + (bh * d.nT + c) * d.P * d.N;
-    for (int e = tid; e < KP * KN; e += kThreads) {
-      const int p = e / KN, n = e % KN;
-      Ms[p * LDN + n] = p < d.P && n < d.N ? gb[p * d.N + n] : 0.f;
-    }
-  }
-  __syncthreads();
-  if (tid < kT) da[tid] = sum16(part, tid) - sum16(part2, tid);
-  __syncthreads();  // the partials are read before the next ones land
-
-  // dx[s][p] = dec_s (B g^T)[s][p] + sum_t W[t][s] dy[t][p]; w_s = dec_s
-  // x_s . (B g^T)_s
-  {
-    float acc[TQ][TP];
+  // s[p][n] = sum_j Xd[j][p] B[j][n], r[p][n] = sum_t Yd[t][p] C[t][n]:
+  // warp w owns rows 16 (w % RG) .. of p and a CW-th of the columns n
+  constexpr int RG = KP / 16, CW = kWarps / RG, NT = KN / (8 * CW);
+  const int m0 = 16 * (warp % RG), n0 = (warp / RG) * (KN / CW);
+  for (int which = 0; which < 2; ++which) {
+    float acc[NT][4];
     zero(acc);
-    gemm(acc, Bs, LDN, 1, Ms, 1, LDN, d.N, ty, tx);
+    warp_mma<F32, NT>(acc, Op<float, false>{which ? Yd : Xd, LDX},
+                      Op<E, false>{which ? Cs : Bs, LDN}, m0, n0, 0, kT, g,
+                      t4);
+    float* out = (which ? gs : hs) + (bh * d.nT + c) * d.P * d.N;
 #pragma unroll
-    for (int u = 0; u < TQ; ++u) {
-      const int s = ty + 16 * u;
-      float ws = 0.f;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int w = 0; w < TP; ++w) {
-        acc[u][w] *= dec[s];
-        ws = fmaf(Xs[s * LDP + tx + 16 * w], acc[u][w], ws);
+      for (int u = 0; u < 2; ++u) {
+        const int p = m0 + g + 8 * u;
+        if (p < d.P)
+          put_pair(out + p * d.N, n0 + 8 * j + 2 * t4, d.N, acc[j][2 * u],
+                   acc[j][2 * u + 1]);
       }
-      part[s * 16 + tx] = ws;
-    }
-    gemm(acc, Wq, 1, LDQ, Ys, LDP, 1, kT, ty, tx);
-    T* xb = dx + (bh * d.S + s0) * d.P;
-#pragma unroll
-    for (int u = 0; u < TQ; ++u) {
-      const int s = ty + 16 * u;
-      if (s >= rows) continue;
-#pragma unroll
-      for (int w = 0; w < TP; ++w) {
-        const int p = tx + 16 * w;
-        if (p < d.P) store(xb + static_cast<int64_t>(s) * d.P + p, acc[u][w]);
-      }
-    }
   }
-  __syncthreads();  // W and the partials of w are complete
-  if (tid < kT) wv[tid] = sum16(part, tid);
-#pragma unroll
-  for (int u = 0; u < TQ; ++u)
-#pragma unroll
-    for (int v = 0; v < TQ; ++v)
-      Wq[(ty + 16 * u) * LDQ + tx + 16 * v] = vv[u][v];
-  __syncthreads();
+  if (tid == 0) decay[bh * d.nT + c] = expf(cs[kT - 1] + csl[kT - 1]);
+  // cs, csl, ex and dec for the tile-gradient launch
+  static_assert(4 * kT == kThreads, "a thread a value");
+  sums[(bh * d.nT + c) * 4 * kT + tid] = cs[tid];
+}
 
-  // dB[s][n] = dec_s (x g)[s][n] + sum_t V[t][s] C[t][n]
-  {
-    float acc[TQ][TN];
-    zero(acc);
-    gemm(acc, Xs, LDP, 1, Ms, LDN, 1, d.P, ty, tx);
+// ---------------------------------------------------- 2. state passing
+// z = 0: hs[bh][c] <- the state entering tile c (0 for the first);
+// z = 1: gs[bh][c] <- the gradient of the state leaving tile c (gT, or 0,
+// for the last).  One of the P N elements a thread.
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_pass_kernel(float* __restrict__ hs, float* __restrict__ gs,
+                        const float* __restrict__ decay,
+                        const float* __restrict__ gT, int nT, int PN) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= PN) return;
+  const int64_t bh = blockIdx.y;
+  const bool rev = blockIdx.z == 1;
+  float* w = (rev ? gs : hs) + bh * nT * PN + e;
+  const float* dc = decay + bh * nT;
+  // the tile the walk reaches at step i
+  auto tile = [&](int i) { return rev ? nT - 1 - i : i; };
+  float run = rev && gT ? gT[bh * PN + e] : 0.f;
+  float cur[kBatch];
 #pragma unroll
-    for (int u = 0; u < TQ; ++u)
+  for (int u = 0; u < kBatch; ++u)
+    if (u < nT) cur[u] = w[static_cast<int64_t>(tile(u)) * PN];
+  for (int i0 = 0; i0 < nT; i0 += kBatch) {
+    float nxt[kBatch];
 #pragma unroll
-      for (int w = 0; w < TN; ++w) acc[u][w] *= dec[ty + 16 * u];
-    gemm(acc, Wq, 1, LDQ, Cs, LDN, 1, kT, ty, tx);
-    float* bb = dBh + (bh * d.S + s0) * d.N;
+    for (int u = 0; u < kBatch; ++u)
+      if (i0 + kBatch + u < nT)
+        nxt[u] = w[static_cast<int64_t>(tile(i0 + kBatch + u)) * PN];
 #pragma unroll
-    for (int u = 0; u < TQ; ++u) {
-      const int s = ty + 16 * u;
-      if (s >= rows) continue;
-#pragma unroll
-      for (int w = 0; w < TN; ++w) {
-        const int n = tx + 16 * w;
-        if (n < d.N) bb[static_cast<int64_t>(s) * d.N + n] = acc[u][w];
-      }
+    for (int u = 0; u < kBatch; ++u) {
+      if (i0 + u >= nT) break;
+      const int c = tile(i0 + u);
+      w[static_cast<int64_t>(c) * PN] = run;
+      run = fmaf(dc[c], run, cur[u]);
     }
-  }
-  __syncthreads();  // g is consumed but for <g, h>
-  // h, the state entering this tile ([n][p] in the forward's workspace; zero
-  // for the first tile), over g; <g, h> on the way
-  {
-    const float* hb = hws + (bh * d.nT + c) * d.N * d.P;
-    float gh = 0.f;
-    for (int e = tid; e < KP * KN; e += kThreads) {
-      const int n = e / KP, p = e % KP;
-      const float hv =
-          c > 0 && p < d.P && n < d.N ? hb[n * d.P + p] : 0.f;
-      gh = fmaf(Ms[p * LDN + n], hv, gh);
-      Ms[p * LDN + n] = hv;
-    }
-    red[tid] = gh;
-  }
-  __syncthreads();
-
-  // dC[t][n] = e^{a_t} (dy h)[t][n] + sum_s V[t][s] B[s][n]; the inter-tile
-  // term of da_t is C_t . e^{a_t} (dy h)_t
-  {
-    float acc[TQ][TN];
-    zero(acc);
-    gemm(acc, Ys, LDP, 1, Ms, LDN, 1, d.P, ty, tx);
 #pragma unroll
-    for (int u = 0; u < TQ; ++u) {
-      const int t = ty + 16 * u;
-      float it = 0.f;
-#pragma unroll
-      for (int w = 0; w < TN; ++w) {
-        acc[u][w] *= ex[t];
-        it = fmaf(Cs[t * LDN + tx + 16 * w], acc[u][w], it);
-      }
-      part[t * 16 + tx] = it;
-    }
-    gemm(acc, Wq, LDQ, 1, Bs, LDN, 1, kT, ty, tx);
-    float* cb2 = dCh + (bh * d.S + s0) * d.N;
-#pragma unroll
-    for (int u = 0; u < TQ; ++u) {
-      const int t = ty + 16 * u;
-      if (t >= rows) continue;
-#pragma unroll
-      for (int w = 0; w < TN; ++w) {
-        const int n = tx + 16 * w;
-        if (n < d.N) cb2[static_cast<int64_t>(t) * d.N + n] = acc[u][w];
-      }
-    }
-  }
-  __syncthreads();
-  // da, then its reverse cumulative sum within the tile, in row order
-  if (tid < kT) da[tid] += sum16(part, tid) - wv[tid];
-  __syncthreads();
-  if (tid == 0) {
-    float gh = 0.f, wsum = 0.f;
-    for (int k = 0; k < kThreads; ++k) gh += red[k];
-    for (int s = 0; s < kT; ++s) wsum += wv[s];
-    float run = ex[kT - 1] * gh + wsum;
-    float* out = ddA + bh * d.S + s0;
-    for (int t = kT - 1; t >= 0; --t) {
-      run += da[t];
-      if (t < rows) out[t] = run;
-    }
+    for (int u = 0; u < kBatch; ++u) cur[u] = nxt[u];
   }
 }
 
-// ------------------------------------------------------ 3. group sums
-template <typename T>
+// --------------------------------------------------- 3. tile gradients
+template <bool F32, int KP, int KN>
+struct TileSmem {
+  static constexpr int kLdN = KN + (F32 ? 4 : 8);  // inputs B, C
+  static constexpr int kLdP = KP + (F32 ? 4 : 8);  // inputs x, dy
+  static constexpr int kLdQ = kT + 4;              // float32 W, then V
+  static constexpr int kLdM = KN + 4;              // float32 g, then h
+  // cs, csl, ex, dec; partial sums of M by row (by column group) and by
+  // column (4 row groups); of w and of the inter-tile term by row (by
+  // column group); <g, h> by warp; rounded up to 16 bytes, where the
+  // input tiles start
+  static constexpr int kSmall =
+      (4 * kT + 4 * kT + 3 * kTileCols * kT + kTileWarps + 3) / 4 * 4;
+  static constexpr size_t kBytes =
+      sizeof(In<F32>) * (2 * kT * kLdN + 2 * kT * kLdP) +
+      sizeof(float) * (kT * kLdQ + KP * kLdM + kSmall);
+};
+
+// two blocks an SM where shared memory allows them in float32 (at (64, 64))
+template <bool F32, int KP, int KN>
+__global__ void __launch_bounds__(
+    kTileThreads, F32 ? blocks_by_smem(TileSmem<F32, KP, KN>::kBytes, 2) : 1)
+    ssd_bwd_tile_kernel(const In<F32>* __restrict__ xdt,
+                        const float* __restrict__ dA,
+                        const In<F32>* __restrict__ Bm,
+                        const In<F32>* __restrict__ Cm,
+                        const In<F32>* __restrict__ dy,
+                        const float* __restrict__ hs,
+                        const float* __restrict__ gs,
+                        const float* __restrict__ sums, In<F32>* __restrict__ dx,
+                        float* __restrict__ ddA, float* __restrict__ dBp,
+                        float* __restrict__ dCp, Shape d) {
+  using E = In<F32>;
+  using Sm = TileSmem<F32, KP, KN>;
+  constexpr int LDN = Sm::kLdN, LDP = Sm::kLdP, LDQ = Sm::kLdQ,
+                LDM = Sm::kLdM;
+  // 8-wide output tiles of a warp: its column group's share of a Q x Q,
+  // Q x P or Q x N output
+  constexpr int CG = kTileCols, NTH = kTileThreads;
+  constexpr int NTQ = kT / (8 * CG), NTP = KP / (8 * CG),
+                NTN = KN / (8 * CG);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* WV = reinterpret_cast<float*>(smem_raw);  // kT x LDQ: W[t][s], V
+  float* Ms = WV + kT * LDQ;                        // KP x LDM: g[p][n], h
+  float* cs = Ms + KP * LDM;  // a_t: cs + csl
+  float* csl = cs + kT;
+  float* ex = csl + kT;
+  float* dec = ex + kT;
+  float* rowp = dec + kT;        // CG x kT: sum_s M[t][s] by column group
+  float* colp = rowp + CG * kT;  // 4 x kT: sum_t M[t][s] by row group
+  float* wp = colp + 4 * kT;     // CG x kT: w_s by column group
+  float* itp = wp + CG * kT;     // CG x kT: C_t . e^{a_t} (dy h)_t
+  float* ghp = itp + CG * kT;    // kTileWarps: <g, h>
+  E* Bs = reinterpret_cast<E*>(cs + Sm::kSmall);  // kT x LDN: B[s][n]
+  E* Cs = Bs + kT * LDN;                  // kT x LDN: C[t][n]
+  E* Xs = Cs + kT * LDN;                  // kT x LDP: x[s][p]
+  E* Ys = Xs + kT * LDP;                  // kT x LDP: dy[t][p]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  // the warp's 16 rows of every Q-row output, and its column group
+  const int rg = warp & 3, ch = warp >> 2, m0 = 16 * rg;
+  const int r0 = m0 + g, r1 = r0 + 8;  // the lane's two rows
+  const int c = blockIdx.x, b = blockIdx.z;
+  const int rep = d.H / d.G;
+  const int grp = blockIdx.y / d.nhb;
+  const int h0 = grp * rep + (blockIdx.y % d.nhb) * d.hpb;
+  const int nh = min(d.hpb, grp * rep + rep - h0);
+  const int s0 = c * d.Tq, rows = min(d.Tq, d.S - s0);
+  const int64_t bg = (static_cast<int64_t>(b) * d.G + grp) * d.S + s0;
+
+  stage<kT, KN, LDN, NTH>(Bs, Bm + bg * d.N, rows, d.N, tid);
+  stage<kT, KN, LDN, NTH>(Cs, Cm + bg * d.N, rows, d.N, tid);
+  cp_async_wait_all();
+  __syncthreads();
+  // the warp's first column of a Q x Q, Q x P and Q x N output
+  const int n0q = ch * (kT / CG), n0p = ch * (KP / CG), n0n = ch * (KN / CG);
+  // CB[t][s] = C_t . B_s for the warp's rows t and columns s, shared by
+  // the block's heads
+  float cb[NTQ][4];
+  zero(cb);
+  warp_mma<F32, NTQ>(cb, Op<E, true>{Cs, LDN}, Op<E, true>{Bs, LDN}, m0,
+                     n0q, 0, KN, g, t4);
+
+  float dBs[NTN][4], dCs[NTN][4];  // the block's sums over heads
+  zero(dBs);
+  zero(dCs);
+
+  for (int hh = 0; hh < nh; ++hh) {
+    const int64_t bh = static_cast<int64_t>(b) * d.H + h0 + hh;
+    const int64_t st = (bh * d.nT + c) * d.P * d.N;  // this tile's state
+    __syncthreads();  // the previous head's operands are consumed
+    stage<kT, KP, LDP, NTH>(Xs, xdt + (bh * d.S + s0) * d.P, rows, d.P,
+                            tid);
+    stage<kT, KP, LDP, NTH>(Ys, dy + (bh * d.S + s0) * d.P, rows, d.P, tid);
+    stage<KP, KN, LDM, NTH>(Ms, gs + st, d.P, d.N, tid);
+    // cs, csl, ex, dec as the tile-states launch formed them
+    stage<1, 4 * kT, 4 * kT, NTH>(cs, sums + (bh * d.nT + c) * 4 * kT, 1,
+                                  4 * kT, tid);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // DX[t][s] = dy_t . x_s; W = L o CB to shared memory, V = L o DX
+    // kept, M = W o DX summed by row and by column
+    float v[NTQ][4];
+    {
+      float dxm[NTQ][4];
+      zero(dxm);
+      warp_mma<F32, NTQ>(dxm, Op<E, true>{Ys, LDP}, Op<E, true>{Xs, LDP},
+                         m0, n0q, 0, KP, g, t4);
+      float rs[2] = {0.f, 0.f}, col[NTQ][2];
+#pragma unroll
+      for (int j = 0; j < NTQ; ++j) {
+        col[j][0] = col[j][1] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = e < 2 ? r0 : r1, s = n0q + 8 * j + 2 * t4 + (e & 1);
+          const float l =
+              s <= t ? expf((cs[t] - cs[s]) + (csl[t] - csl[s])) : 0.f;
+          const float w = l * cb[j][e];
+          WV[t * LDQ + s] = w;
+          v[j][e] = l * dxm[j][e];
+          const float m = w * dxm[j][e];
+          rs[e >> 1] += m;
+          col[j][e & 1] += m;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        rs[u] += __shfl_xor_sync(0xffffffffu, rs[u], 1);
+        rs[u] += __shfl_xor_sync(0xffffffffu, rs[u], 2);
+      }
+      if (t4 == 0) {
+        rowp[ch * kT + r0] = rs[0];
+        rowp[ch * kT + r1] = rs[1];
+      }
+#pragma unroll
+      for (int j = 0; j < NTQ; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float x = col[j][u];
+          x += __shfl_xor_sync(0xffffffffu, x, 4);
+          x += __shfl_xor_sync(0xffffffffu, x, 8);
+          x += __shfl_xor_sync(0xffffffffu, x, 16);
+          if (g == 0) colp[rg * kT + n0q + 8 * j + 2 * t4 + u] = x;
+        }
+    }
+    __syncthreads();  // W is complete
+
+    // dx[s][p] = dec_s (B g^T)[s][p] + sum_{t>=s} W[t][s] dy[t][p];
+    // w_s = dec_s x_s . (B g^T)_s
+    {
+      float acc[NTP][4];
+      zero(acc);
+      warp_mma<F32, NTP>(acc, Op<E, true>{Bs, LDN},
+                             Op<float, true>{Ms, LDM}, m0, n0p, 0, KN, g, t4);
+      float ws[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NTP; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = e < 2 ? r0 : r1, p = n0p + 8 * j + 2 * t4 + (e & 1);
+          acc[j][e] *= dec[s];
+          ws[e >> 1] = fmaf(val(Xs[s * LDP + p]), acc[j][e], ws[e >> 1]);
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        ws[u] += __shfl_xor_sync(0xffffffffu, ws[u], 1);
+        ws[u] += __shfl_xor_sync(0xffffffffu, ws[u], 2);
+      }
+      if (t4 == 0) {
+        wp[ch * kT + r0] = ws[0];
+        wp[ch * kT + r1] = ws[1];
+      }
+      warp_mma<F32, NTP>(acc, Op<float, false>{WV, LDQ},
+                             Op<E, false>{Ys, LDP}, m0, n0p, m0, kT, g, t4);
+      E* xb = dx + (bh * d.S + s0) * d.P;
+#pragma unroll
+      for (int j = 0; j < NTP; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int s = u ? r1 : r0;
+          if (s < rows)
+            put_pair(xb + static_cast<int64_t>(s) * d.P, n0p + 8 * j + 2 * t4,
+                     d.P, acc[j][2 * u], acc[j][2 * u + 1]);
+        }
+    }
+    __syncthreads();  // W is consumed
+#pragma unroll
+    for (int j = 0; j < NTQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        WV[(e < 2 ? r0 : r1) * LDQ + n0q + 8 * j + 2 * t4 + (e & 1)] =
+            v[j][e];
+    __syncthreads();  // V is complete
+
+    // dB[s][n] = dec_s (x g)[s][n] + sum_{t>=s} V[t][s] C[t][n]
+    {
+      float acc[NTN][4];
+      zero(acc);
+      warp_mma<F32, NTN>(acc, Op<E, true>{Xs, LDP},
+                             Op<float, false>{Ms, LDM}, m0, n0n, 0, KP, g,
+                             t4);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= dec[e < 2 ? r0 : r1];
+      warp_mma<F32, NTN>(acc, Op<float, false>{WV, LDQ},
+                             Op<E, false>{Cs, LDN}, m0, n0n, m0, kT, g, t4);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dBs[j][e] += acc[j][e];
+    }
+    __syncthreads();  // g is consumed
+    // h, the state entering this tile, over g; <g, h> on the way
+    {
+      float gh = swap_in<KP, KN, LDM, NTH>(Ms, hs + st, d.P, d.N, tid);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        gh += __shfl_xor_sync(0xffffffffu, gh, off);
+      if (lane == 0) ghp[warp] = gh;
+    }
+    __syncthreads();  // h is complete
+
+    // dC[t][n] = e^{a_t} (dy h)[t][n] + sum_{s<=t} V[t][s] B[s][n]; the
+    // inter-tile term of da_t is C_t . e^{a_t} (dy h)_t
+    {
+      float acc[NTN][4];
+      zero(acc);
+      warp_mma<F32, NTN>(acc, Op<E, true>{Ys, LDP},
+                             Op<float, false>{Ms, LDM}, m0, n0n, 0, KP, g,
+                             t4);
+      float it[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = e < 2 ? r0 : r1, n = n0n + 8 * j + 2 * t4 + (e & 1);
+          acc[j][e] *= ex[t];
+          it[e >> 1] = fmaf(val(Cs[t * LDN + n]), acc[j][e], it[e >> 1]);
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        it[u] += __shfl_xor_sync(0xffffffffu, it[u], 1);
+        it[u] += __shfl_xor_sync(0xffffffffu, it[u], 2);
+      }
+      if (t4 == 0) {
+        itp[ch * kT + r0] = it[0];
+        itp[ch * kT + r1] = it[1];
+      }
+      warp_mma<F32, NTN>(acc, Op<float, true>{WV, LDQ},
+                             Op<E, false>{Bs, LDN}, m0, n0n, 0, m0 + 16, g,
+                             t4);
+#pragma unroll
+      for (int j = 0; j < NTN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dCs[j][e] += acc[j][e];
+    }
+    __syncthreads();  // every partial is written
+
+    // da, then its reverse cumulative sum within the tile: warp 0, rows
+    // 2 l and 2 l + 1 a lane, shuffles in fixed trees
+    if (warp == 0) {
+      float da[2], wsum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int t = 2 * lane + u;
+        float w = 0.f, row = 0.f, it = 0.f;
+#pragma unroll
+        for (int k = 0; k < CG; ++k) {
+          w += wp[k * kT + t];
+          row += rowp[k * kT + t];
+          it += itp[k * kT + t];
+        }
+        da[u] = row -
+                ((colp[t] + colp[kT + t]) +
+                 (colp[2 * kT + t] + colp[3 * kT + t])) +
+                it - w;
+        wsum += w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        wsum += __shfl_xor_sync(0xffffffffu, wsum, off);
+      if (lane == 31) {  // row kT - 1
+        float gh = 0.f;
+        for (int k = 0; k < kTileWarps; ++k) gh += ghp[k];
+        da[1] += ex[kT - 1] * gh + wsum;
+      }
+      // the lanes' pair sums summed from the last lane down
+      const float pair = da[0] + da[1];
+      float suf = pair;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_down_sync(0xffffffffu, suf, off);
+        if (lane + off < 32) suf += u;
+      }
+      float after = __shfl_down_sync(0xffffffffu, suf, 1);  // rows > 2 l + 1
+      if (lane == 31) after = 0.f;
+      float* out = ddA + bh * d.S + s0;
+      const float odd = da[1] + after;
+      if (2 * lane < rows) out[2 * lane] = da[0] + odd;
+      if (2 * lane + 1 < rows) out[2 * lane + 1] = odd;
+    }
+  }
+
+  // the block's dB and dC partials
+  const int64_t pb = (static_cast<int64_t>(b) * gridDim.y + blockIdx.y) * d.S
+                     + s0;
+#pragma unroll
+  for (int j = 0; j < NTN; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int s = u ? r1 : r0, n = n0n + 8 * j + 2 * t4;
+      if (s < rows) {
+        put_pair(dBp + (pb + s) * d.N, n, d.N, dBs[j][2 * u],
+                 dBs[j][2 * u + 1]);
+        put_pair(dCp + (pb + s) * d.N, n, d.N, dCs[j][2 * u],
+                 dCs[j][2 * u + 1]);
+      }
+    }
+}
+
+// ------------------------------------------------------ 4. group sums
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-    group_sum_kernel(const float* __restrict__ dBh,
-                     const float* __restrict__ dCh, T* __restrict__ dB,
-                     T* __restrict__ dC, int64_t per_group, int rep,
-                     int64_t n_out) {
+    ssd_bwd_group_sum_kernel(const float* __restrict__ dBp,
+                             const float* __restrict__ dCp,
+                             E* __restrict__ dB, E* __restrict__ dC,
+                             int64_t per_group, int nhb, int64_t n_out) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= n_out) return;
-  // e = (b G + g) per_group + rest; head k of the group at
-  // ((b G + g) rep + k) per_group + rest
+  // e = (b G + g) per_group + rest; block k of the group at
+  // ((b G + g) nhb + k) per_group + rest
   const int64_t bg = e / per_group, rest = e % per_group;
   float sb = 0.f, sc = 0.f;
-  for (int k = 0; k < rep; ++k) {
-    const int64_t i = (bg * rep + k) * per_group + rest;
-    sb += dBh[i];
-    sc += dCh[i];
+  for (int k = 0; k < nhb; ++k) {
+    const int64_t i = (bg * nhb + k) * per_group + rest;
+    sb += dBp[i];
+    sc += dCp[i];
   }
-  store(dB + e, sb);
-  store(dC + e, sc);
+  put(dB + e, sb);
+  put(dC + e, sc);
 }
 
 // ------------------------------------------------------------ launches
@@ -477,8 +1026,17 @@ int64_t tiles(int64_t S, int64_t chunk) {
   return (S + tq - 1) / tq;
 }
 
+// heads a tile-gradient block serves, and such blocks a group
+int64_t heads_per_block(int64_t rep) {
+  return rep < kMaxHeadsPerBlock ? rep : kMaxHeadsPerBlock;
+}
+int64_t blocks_per_group(int64_t rep) {
+  const int64_t hpb = heads_per_block(rep);
+  return (rep + hpb - 1) / hpb;
+}
+
 struct Args {
-  const void *xdt, *dA, *Bm, *Cm, *dy, *gT, *hws;
+  const void *xdt, *dA, *Bm, *Cm, *dy, *gT;
   float* scratch;
   void *dx, *ddA, *dB, *dC;
   int B;
@@ -486,51 +1044,64 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int KP, int KN, typename T>
+template <bool F32, int KP, int KN>
 int run(const Args& a) {
+  using E = In<F32>;
   const Shape& d = a.d;
-  const int64_t bhs = static_cast<int64_t>(a.B) * d.H;
-  float* gws = a.scratch;
-  float* dBh = gws + bhs * d.nT * d.P * d.N;
-  float* dCh = dBh + bhs * d.S * d.N;
+  const int64_t states = static_cast<int64_t>(a.B) * d.H * d.nT * d.P * d.N;
+  // the tile sums first: the tile-gradient launch copies them in 16-byte
+  // pieces whatever P and N
+  float* sums = a.scratch;
+  float* hs = sums + static_cast<int64_t>(a.B) * d.H * d.nT * 4 * kT;
+  float* gs = hs + states;
+  float* decay = gs + states;
+  float* dBp = decay + static_cast<int64_t>(a.B) * d.H * d.nT;
+  float* dCp =
+      dBp + static_cast<int64_t>(a.B) * d.G * d.nhb * d.S * d.N;
+  const E* xdt = static_cast<const E*>(a.xdt);
   const float* dA = static_cast<const float*>(a.dA);
+  const E* Bm = static_cast<const E*>(a.Bm);
+  const E* Cm = static_cast<const E*>(a.Cm);
+  const E* dy = static_cast<const E*>(a.dy);
 
-  constexpr size_t s1 =
-      sizeof(float) * (kT * (KN + 1) + kT * (kSlab + 1) + 2 * kT);
-  int err = set_smem(state_grad_kernel<KN, T>, s1);
+  constexpr size_t s1 = StateSmem<F32, KP, KN>::kBytes;
+  int err = set_smem(ssd_bwd_states_kernel<F32, KP, KN>, s1);
   if (err) return err;
-  state_grad_kernel<KN, T><<<dim3((d.P + kSlab - 1) / kSlab, d.H, a.B),
-                             kThreads, s1, a.stream>>>(
-      static_cast<const T*>(a.dy), dA, static_cast<const T*>(a.Cm),
-      static_cast<const float*>(a.gT), gws, d);
+  ssd_bwd_states_kernel<F32, KP, KN><<<dim3(d.nT, d.H, a.B), kThreads, s1,
+                                        a.stream>>>(xdt, dA, Bm, Cm, dy, hs,
+                                                    gs, decay, sums, d);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
 
-  constexpr size_t s2 = sizeof(float) * GradSmem<KP, KN>::kFloats;
-  if ((err = set_smem(tile_grad_kernel<KP, KN, T>, s2))) return err;
-  tile_grad_kernel<KP, KN, T><<<dim3(d.nT, d.H, a.B), kThreads, s2,
-                                a.stream>>>(
-      static_cast<const T*>(a.xdt), dA, static_cast<const T*>(a.Bm),
-      static_cast<const T*>(a.Cm), static_cast<const T*>(a.dy),
-      static_cast<const float*>(a.hws), gws, static_cast<T*>(a.dx),
-      static_cast<float*>(a.ddA), dBh, dCh, d);
+  const int PN = d.P * d.N;
+  ssd_bwd_pass_kernel<<<dim3((PN + kThreads - 1) / kThreads, a.B * d.H, 2),
+                        kThreads, 0, a.stream>>>(
+      hs, gs, decay, static_cast<const float*>(a.gT), d.nT, PN);
+  if ((err = static_cast<int>(cudaGetLastError()))) return err;
+
+  constexpr size_t s3 = TileSmem<F32, KP, KN>::kBytes;
+  if ((err = set_smem(ssd_bwd_tile_kernel<F32, KP, KN>, s3))) return err;
+  ssd_bwd_tile_kernel<F32, KP, KN><<<dim3(d.nT, d.G * d.nhb, a.B), kTileThreads,
+                                      s3, a.stream>>>(
+      xdt, dA, Bm, Cm, dy, hs, gs, sums, static_cast<E*>(a.dx),
+      static_cast<float*>(a.ddA), dBp, dCp, d);
   if ((err = static_cast<int>(cudaGetLastError()))) return err;
 
   const int64_t per_group = static_cast<int64_t>(d.S) * d.N;
   const int64_t n_out = static_cast<int64_t>(a.B) * d.G * per_group;
-  group_sum_kernel<T><<<static_cast<unsigned>((n_out + kThreads - 1) /
-                                              kThreads),
-                        kThreads, 0, a.stream>>>(
-      dBh, dCh, static_cast<T*>(a.dB), static_cast<T*>(a.dC), per_group,
-      d.H / d.G, n_out);
+  ssd_bwd_group_sum_kernel<E><<<static_cast<unsigned>(
+                                    (n_out + kThreads - 1) / kThreads),
+                                kThreads, 0, a.stream>>>(
+      dBp, dCp, static_cast<E*>(a.dB), static_cast<E*>(a.dC), per_group,
+      d.nhb, n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <bool F32>
 int by_size(const Args& a) {
   const Shape& d = a.d;
-  if (d.P <= 64 && d.N <= 64) return run<64, 64, T>(a);
-  if (d.P <= 64) return run<64, 128, T>(a);
-  return run<128, 128, T>(a);
+  if (d.P <= 64 && d.N <= 64) return run<F32, 64, 64>(a);
+  if (d.P <= 64) return run<F32, 64, 128>(a);
+  return run<F32, 128, 128>(a);
 }
 
 int launch(bool is_bf16, const Args& base, int64_t B, int64_t H, int64_t G,
@@ -538,15 +1109,19 @@ int launch(bool is_bf16, const Args& base, int64_t B, int64_t H, int64_t G,
   if (B == 0 || H == 0) return 0;
   if (G <= 0 || H % G != 0 || S <= 0 || S > INT32_MAX / kMaxPN ||
       chunk <= 0 || S % chunk != 0 || P <= 0 || P > kMaxPN || N <= 0 ||
-      N > kMaxPN || B > 65535 || H > 65535)
+      N > kMaxPN || B > 65535 || H > 65535 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t rep = H / G;
   Args a = base;
   a.B = static_cast<int>(B);
-  a.d = Shape{static_cast<int>(H), static_cast<int>(G), static_cast<int>(S),
-              static_cast<int>(P), static_cast<int>(N),
-              static_cast<int>(chunk < kT ? chunk : kT),
-              static_cast<int>(tiles(S, chunk))};
-  return is_bf16 ? by_size<bf16>(a) : by_size<float>(a);
+  a.d = Shape{static_cast<int>(H),     static_cast<int>(G),
+              static_cast<int>(S),     static_cast<int>(P),
+              static_cast<int>(N),     static_cast<int>(chunk < kT ? chunk : kT),
+              static_cast<int>(tiles(S, chunk)),
+              static_cast<int>(heads_per_block(rep)),
+              static_cast<int>(blocks_per_group(rep))};
+  if (G * a.d.nhb > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16 ? by_size<false>(a) : by_size<true>(a);
 }
 
 }  // namespace
@@ -557,39 +1132,40 @@ const char* error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// float32 elements of the scratch the backward needs at this shape: the
-// state gradients (B, H, tiles, P, N) and the per-head dB and dC
-// (B, H, S, N) each
-int64_t ssd_scan_bwd_scratch_floats(int64_t B, int64_t H, int64_t S,
-                                    int64_t P, int64_t N, int64_t chunk) {
-  if (chunk <= 0) return 0;
-  return B * H * (tiles(S, chunk) * P * N + 2 * S * N);
+// float32 elements of the scratch the backward needs at this shape: each
+// tile's cumulative sums of dA and their exponentials (B, H, tiles, 4,
+// 64), the tile states twice (B, H, tiles, P, N), the tile decays (B, H,
+// tiles) and the tile blocks' dB and dC partials (B, G
+// blocks_per_group(H / G), S, N) each
+int64_t ssd_scan_bwd_scratch_floats(int64_t B, int64_t H, int64_t G,
+                                    int64_t S, int64_t P, int64_t N,
+                                    int64_t chunk) {
+  if (chunk <= 0 || G <= 0 || H % G != 0) return 0;
+  const int64_t nT = tiles(S, chunk);
+  return B * H * nT * (2 * P * N + 1 + 4 * kT) +
+         2 * B * G * blocks_per_group(H / G) * S * N;
 }
 
 // xdt, dy, dxdt (B, H, S, P) and B, C, dB, dC (B, G, S, N) in one type;
 // dA, ddA (B, H, S) float32; gT null or (B, H, P, N) float32, the final
-// state's gradient; hws the states entering each tile as the forward's
-// stages 1-2 leave them in its workspace ((B, H, tiles, N, P) float32, at
-// the same chunk); scratch ssd_scan_bwd_scratch_floats(...) floats.  All
-// contiguous.  Three launches.
+// state's gradient; scratch ssd_scan_bwd_scratch_floats(...) floats.  All
+// contiguous.  Four launches.
 int ssd_scan_bwd_f32(const void* xdt, const void* dA, const void* Bm,
                      const void* Cm, const void* dy, const void* gT,
-                     const void* hws, void* scratch, void* dxdt, void* ddA,
-                     void* dB, void* dC, int64_t B, int64_t H, int64_t G,
-                     int64_t S, int64_t P, int64_t N, int64_t chunk,
-                     void* stream) {
-  const Args a{xdt, dA, Bm, Cm, dy, gT, hws, static_cast<float*>(scratch),
+                     void* scratch, void* dxdt, void* ddA, void* dB, void* dC,
+                     int64_t B, int64_t H, int64_t G, int64_t S, int64_t P,
+                     int64_t N, int64_t chunk, void* stream) {
+  const Args a{xdt, dA, Bm, Cm, dy, gT, static_cast<float*>(scratch),
                dxdt, ddA, dB, dC, 0, Shape{}, static_cast<cudaStream_t>(stream)};
   return launch(false, a, B, H, G, S, P, N, chunk);
 }
 
 int ssd_scan_bwd_bf16(const void* xdt, const void* dA, const void* Bm,
                       const void* Cm, const void* dy, const void* gT,
-                      const void* hws, void* scratch, void* dxdt, void* ddA,
-                      void* dB, void* dC, int64_t B, int64_t H, int64_t G,
-                      int64_t S, int64_t P, int64_t N, int64_t chunk,
-                      void* stream) {
-  const Args a{xdt, dA, Bm, Cm, dy, gT, hws, static_cast<float*>(scratch),
+                      void* scratch, void* dxdt, void* ddA, void* dB,
+                      void* dC, int64_t B, int64_t H, int64_t G, int64_t S,
+                      int64_t P, int64_t N, int64_t chunk, void* stream) {
+  const Args a{xdt, dA, Bm, Cm, dy, gT, static_cast<float*>(scratch),
                dxdt, ddA, dB, dC, 0, Shape{}, static_cast<cudaStream_t>(stream)};
   return launch(true, a, B, H, G, S, P, N, chunk);
 }

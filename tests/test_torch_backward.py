@@ -12,10 +12,14 @@ run only on the card.  Here, from the same NumPy inputs:
 * a CPU emulation of each backward kernel's blocked algorithm (the flash
   kernel's log-sum-exp, its row pass of l and D, dK/dV over query tiles
   with the GQA sum,
-  dQ over KV tiles; the SSD kernel's reverse pass over tiles and its
-  per-tile gradient formulas, with a nonzero final-state gradient), held
-  to autograd of the plain version within 1e-5, as
-  ``test_torch_kernels._flash_3xtf32_design`` holds the forward's;
+  dQ over KV tiles; the SSD kernels' tile states, their forward and
+  reverse passes over the tiles and the per-tile gradient formulas, with
+  a nonzero final-state gradient), held to autograd of the plain version
+  within 1e-5, as ``test_torch_kernels._flash_3xtf32_design`` holds the
+  forward's, and each kernel's tensor-core arithmetic (3xTF32 products in
+  float32; bfloat16 operands with the float32-formed ones as bfloat16
+  pairs) within twice the same-dtype plain version's float64-referenced
+  error;
 * each ``autograd.Function``'s wiring (what it saves, the ``None``
   gradients, the group sums) with those emulations injected into the
   port's own ``ops`` modules in place of the launches, through the entry
@@ -433,21 +437,35 @@ def test_bf16_pair_keeps_sixteen_bits():
     assert rel(x.bfloat16().float()) > 2.0 ** -10
 
 
-def _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk):
+def _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk, mm=None, carry=None,
+                    pad_to=None):
     """The SSD backward kernels' algorithm on the kernel's layout, in tiles
-    of min(chunk, 64) rows: the states entering each tile from the
-    forward's stages (``ssd_chunk_parallel``); the gradient of the state
-    leaving each tile by the reverse pass g_in = e^{a_last} g + sum_t
-    e^{a_t} dy_t C_t^T from ``dst``; then per tile the formulas of
-    ``ssd_scan_bwd.cu`` and the in-tile reverse sum of da; dB and dC summed
-    over each group's heads in order.  (dxdt, ddA, dB, dC)."""
+    of min(chunk, 64) rows.  Per tile, its own state s = (dec o x)^T B and
+    its own state gradient r = (e^a o dy)^T C (the decays within the tile);
+    then the passes over the tiles, the state entering each tile h_{c+1} =
+    e^{a_last} h_c + s_c from zero and the gradient of the state leaving
+    it g_{c-1} = e^{a_last} g_c + r_c from ``dst``; then per tile the
+    formulas of ``ssd_scan_bwd.cu`` and the in-tile reverse sum of da; dB
+    and dC summed over each group's heads in order.  ``mm(a, b)`` is each
+    product (float32 matmul by default), ``carry`` what an operand formed
+    in float32 (the decayed rows, W, V, h and g) becomes before its
+    product; ``pad_to`` (P, N) pads P and N with zeros, as the kernel's
+    instances do.  (dxdt, ddA, dB, dC)."""
+    mm = mm or torch.matmul
+    carry = carry or (lambda t: t)
     b, H, S, P = xdt.shape
     G, N = B.shape[1], B.shape[3]
+    if pad_to is not None:
+        zp = lambda t, n: torch.nn.functional.pad(t, (0, n - t.shape[-1]))
+        got = _ssd_bwd_design(zp(xdt, pad_to[0]), dA, zp(B, pad_to[1]),
+                              zp(C, pad_to[1]), zp(dy, pad_to[0]),
+                              None if dst is None else torch.nn.functional.pad(
+                                  dst, (0, pad_to[1] - N, 0, pad_to[0] - P)),
+                              chunk, mm, carry)
+        return (got[0][..., :P], got[1], got[2][..., :N], got[3][..., :N])
     rep, T = H // G, min(chunk, 64)
     nT = -(-S // T)
     pad = nT * T - S
-    _, _, stages = ssd_chunk_parallel(xdt, dA, B, C, T)
-    h_in = stages["passed_states"]                          # (b,H,nT,P,N)
     rows = lambda t: torch.nn.functional.pad(t, (0, 0, 0, pad))
     x = rows(xdt).reshape(b, H, nT, T, P)
     y = rows(dy).reshape(b, H, nT, T, P)
@@ -456,24 +474,31 @@ def _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk):
     Bh = rows(B.repeat_interleave(rep, 1)).reshape(b, H, nT, T, N)
     Ch = rows(C.repeat_interleave(rep, 1)).reshape(b, H, nT, T, N)
     ex, last = torch.exp(a), a[..., -1]
-    gs, g = [], dst.clone() if dst is not None else torch.zeros(b, H, P, N)
+    dec = torch.exp(last[..., None] - a)
+    T_ = lambda t: t.transpose(-1, -2)
+    s_own = mm(T_(carry(dec[..., None] * x)), Bh)           # (b,H,nT,P,N)
+    r_own = mm(T_(carry(ex[..., None] * y)), Ch)
+    hs, h = [], torch.zeros(b, H, P, N, dtype=x.dtype)
+    for c in range(nT):
+        hs.append(h)
+        h = torch.exp(last[:, :, c])[..., None, None] * h + s_own[:, :, c]
+    gs, g = [], (dst.clone() if dst is not None
+                 else torch.zeros(b, H, P, N, dtype=x.dtype))
     for c in reversed(range(nT)):
         gs.append(g)
-        g = torch.exp(last[:, :, c])[..., None, None] * g + \
-            (ex[:, :, c, :, None] * y[:, :, c]).transpose(-1, -2) \
-            @ Ch[:, :, c]
-    g = torch.stack(gs[::-1], 2)                            # (b,H,nT,P,N)
+        g = torch.exp(last[:, :, c])[..., None, None] * g + r_own[:, :, c]
+    h_in, g = torch.stack(hs, 2), torch.stack(gs[::-1], 2)  # (b,H,nT,P,N)
     L = torch.exp(_segsum(da_t))          # e^{a_t - a_s}, s <= t
-    W = L * (Ch @ Bh.transpose(-1, -2))
-    V = L * (y @ x.transpose(-1, -2))
-    Mm = W * (y @ x.transpose(-1, -2))
-    dec = torch.exp(last[..., None] - a)
-    u = Bh @ g.transpose(-1, -2)                            # (..,T,P)
+    dxm = mm(y, T_(x))
+    W = L * mm(Ch, T_(Bh))
+    V = L * dxm
+    Mm = W * dxm
+    u = mm(Bh, T_(carry(g)))                                # (..,T,P)
     w = dec * (x * u).sum(-1)
-    dx = dec[..., None] * u + W.transpose(-1, -2) @ y
-    dBh = dec[..., None] * (x @ g) + V.transpose(-1, -2) @ Ch
-    dyh = ex[..., None] * (y @ h_in)
-    dCh = dyh + V @ Bh
+    dx = dec[..., None] * u + mm(T_(carry(W)), y)
+    dBh = dec[..., None] * mm(x, carry(g)) + mm(T_(carry(V)), Ch)
+    dyh = ex[..., None] * mm(y, carry(h_in))
+    dCh = dyh + mm(carry(V), Bh)
     da = Mm.sum(-1) - Mm.sum(-2) + (Ch * dyh).sum(-1) - w
     da[..., -1] += torch.exp(last) * (g * h_in).sum((-1, -2)) + w.sum(-1)
     ddA = da.flip(-1).cumsum(-1).flip(-1)
@@ -481,6 +506,25 @@ def _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk):
     group = lambda t: cut(t).reshape(b, G, rep, S, N).sum(2)
     return (cut(dx), ddA.reshape(b, H, nT * T)[:, :, :S], group(dBh),
             group(dCh))
+
+
+def _ssd_bwd_3xtf32_design(xdt, dA, B, C, dy, dst, chunk, pad_to=None):
+    """The float32 kernels' arithmetic: every product as three TF32
+    products (``_tf32_product``) summed in float32."""
+    return _ssd_bwd_design(xdt, dA, B, C, dy, dst, chunk,
+                           mm=lambda a, b: _tf32_product(a, b, 3),
+                           pad_to=pad_to)
+
+
+def _ssd_bwd_bf16_design(xdt, dA, B, C, dy, dst, chunk, pad_to=None):
+    """The bfloat16 kernels' arithmetic: bfloat16 inputs, products summed
+    in float32, every operand formed in float32 (the decayed rows, W, V,
+    h and g) as a bfloat16 pair; the gradients rounded to the inputs'
+    type."""
+    f = lambda t: None if t is None else t.float()
+    got = _ssd_bwd_design(f(xdt), f(dA), f(B), f(C), f(dy), f(dst), chunk,
+                          carry=_bf16_pair, pad_to=pad_to)
+    return tuple(t.to(xdt.dtype) for t in got)
 
 
 def _ssd_kernel_inputs(b=1, H=4, G=2, S=96, P=8, N=16, seed=3):
@@ -516,6 +560,73 @@ def test_ssd_backward_design_matches_autograd(S, P, N, chunk, with_dst):
                           chunk)
     for g, w in zip(got, _plain_ssd_grads(ins, dy, dst, chunk)):
         _close(g, w)
+
+
+def _ssd_errors_from_f64(got, ins, dy, dst, chunk):
+    """Each SSD gradient's largest error against the chunked plain
+    version's autograd in float64, as a share of its largest magnitude:
+    (kernel's, the plain version's in the inputs' dtype) by gradient."""
+    def grads(*ts):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ts]
+        y, st = ssd_chunked_folded(*leaves, chunk)
+        outs, gs = [y], [dy.to(y.dtype)]
+        if dst is not None:
+            outs.append(st)
+            gs.append(dst.to(st.dtype))
+        return torch.autograd.grad(outs, leaves, gs)
+
+    exact = grads(*(t.double() for t in ins))
+    plain = grads(*ins)
+    out = []
+    for a, p, e in zip(got, plain, exact):
+        scale = float(e.abs().max())
+        out.append((float((a.double() - e).abs().max()) / scale,
+                    float((p.double() - e).abs().max()) / scale))
+    return out
+
+
+# (H, G, S, P, N, chunk, pad_to): several tiles; a ragged last tile at
+# chunk 96; P and N padded to the kernel's generic instance; mamba2's
+# P 64, N 128 on its own instance
+SSD_TC_CASES = [(4, 2, 192, 8, 16, 64, None), (4, 2, 192, 8, 8, 96, None),
+                (4, 2, 96, 20, 24, 32, (64, 64)),
+                (4, 1, 128, 64, 128, 64, None)]
+
+
+@pytest.mark.parametrize("H,G,S,P,N,chunk,pad_to", SSD_TC_CASES)
+@pytest.mark.parametrize("with_dst", [True, False])
+def test_ssd_backward_3xtf32_design_within_twice_plain(H, G, S, P, N, chunk,
+                                                       pad_to, with_dst):
+    """The float32 tensor-core kernels' arithmetic (3xTF32 products, the
+    chunk-parallel states), held as the card holds the kernels: each
+    gradient at most twice as far from the plain version's float64
+    gradients as the float32 plain version's."""
+    ins, dy, dst = _ssd_kernel_inputs(H=H, G=G, S=S, P=P, N=N, seed=11)
+    ins = tuple(torch.from_numpy(t) for t in ins)
+    dy = torch.from_numpy(dy)
+    dst = torch.from_numpy(dst) if with_dst else None
+    got = _ssd_bwd_3xtf32_design(*ins, dy, dst, chunk, pad_to)
+    for kernel, plain in _ssd_errors_from_f64(got, ins, dy, dst, chunk):
+        assert kernel <= 2 * plain
+
+
+@pytest.mark.parametrize("H,G,S,P,N,chunk,pad_to", SSD_TC_CASES)
+@pytest.mark.parametrize("with_dst", [True, False])
+def test_ssd_backward_bf16_design_within_twice_plain(H, G, S, P, N, chunk,
+                                                     pad_to, with_dst):
+    """The bfloat16 tensor-core kernels' arithmetic (bfloat16 inputs, the
+    operands formed in float32 as bfloat16 pairs, float32 sums, gradients
+    in bfloat16), each gradient at most twice as far from the plain
+    version's float64 gradients as the bfloat16 plain version's."""
+    ins, dy, dst = _ssd_kernel_inputs(H=H, G=G, S=S, P=P, N=N, seed=12)
+    ins = tuple(torch.from_numpy(t).bfloat16() for t in ins)
+    dy = torch.from_numpy(dy).bfloat16()
+    dst = torch.from_numpy(dst) if with_dst else None
+    got = _ssd_bwd_bf16_design(*ins, dy, dst, chunk, pad_to)
+    for g in got:
+        assert g.dtype == torch.bfloat16
+    for kernel, plain in _ssd_errors_from_f64(got, ins, dy, dst, chunk):
+        assert kernel <= 2 * plain
 
 
 # ------------------------------- 3. the autograd.Functions, on emulations

@@ -19,8 +19,9 @@ from it as the float32 plain version), the SSD scan kernel within that test's 5e
 the exact recurrence and to the chunked algorithm.  The backward kernels
 (through the wrappers' ``autograd.Function`` classes) are held to autograd of
 the plain versions within the same tolerances as shares of each
-gradient's largest magnitude, in float32 to the plain versions' float64
-gradients at most twice as far as the float32 plain versions', bit for
+gradient's largest magnitude, to the plain versions' float64 gradients
+at most twice as far as the same-dtype plain versions' (float32; the SSD
+backward in bfloat16 too), bit for
 bit from one run to the next; a reduced model's gradients through them
 to its gradients through the plain versions within 1e-4.  The models'
 forwards through the kernels to their forwards through the plain
@@ -587,8 +588,8 @@ def _ssd_grads(ins, dy, dst, fn):
 @pytest.mark.parametrize("B,H,G,S,P,N,chunk", SSD_SHAPES)
 def test_ssd_backward_matches_plain(cuda_device, B, H, G, S, P, N, chunk,
                                     dtype):
-    """The gradients of xdt, dA, B and C through _SSDScan (the forward's
-    stages 1-2 again, then three backward launches), with a nonzero final
+    """The gradients of xdt, dA, B and C through _SSDScan (four backward
+    launches that recompute the states from the inputs), with a nonzero final
     state's gradient, against autograd of the chunked plain version, as
     shares of each gradient's largest magnitude within the forward's
     tolerances; chunk = S among the shapes."""
@@ -608,23 +609,47 @@ def test_ssd_backward_matches_plain(cuda_device, B, H, G, S, P, N, chunk,
         assert _rel_err(a, b) <= SSD_TOL[dtype]
 
 
-@pytest.mark.parametrize("shape", [(2, 80, 1, 2048, 64, 128, 64),
-                                   (1, 112, 1, 1024, 64, 64, 64),
-                                   (2, 4, 2, 128, 32, 32, 32)])
-def test_ssd_backward_f32_as_accurate_as_plain_f32(cuda_device, shape):
-    """Each float32 gradient at most twice as far from the plain version's
-    float64 gradients as the float32 plain version's."""
+# (B, H, G, S, P, N, chunk) of the backward's accuracy and determinism
+# tests: mamba2's and zamba2's widths (20 and 28 tile blocks of four heads
+# a group), G 2 < H 4 (one block a group), and six heads a group (blocks
+# of four and two)
+SSD_BWD_SHAPES = [(2, 80, 1, 2048, 64, 128, 64), (1, 112, 1, 1024, 64, 64, 64),
+                  (2, 4, 2, 128, 32, 32, 32), (1, 12, 2, 256, 64, 64, 64)]
+
+
+def _ssd_bwd_vs_f64(cuda_device, shape, dtype, seed):
+    """(kernel, same-dtype plain version, float64 plain version) gradients
+    of xdt, dA, B and C, with a final state's gradient."""
     B, H, G, S, P, N, chunk = shape
-    ins = _ssd_inputs(cuda_device, B, H, G, S, P, N, torch.float32)
-    g = torch.Generator(device=cuda_device).manual_seed(9)
+    ins = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
     dy = torch.randn(B, H, S, P, generator=g, device=cuda_device)
     dst = torch.randn(B, H, P, N, generator=g, device=cuda_device)
     run = lambda impl: _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
         *t, chunk=chunk, impl=impl))
-    got, plain = run("kernel"), run("ref")
     exact = _ssd_grads([t.double() for t in ins], dy, dst,
                        lambda *t: ssd_chunked_folded(*t, chunk))
+    return run("kernel"), run("ref"), exact
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_f32_as_accurate_as_plain_f32(cuda_device, shape):
+    """Each float32 gradient at most twice as far from the plain version's
+    float64 gradients as the float32 plain version's."""
+    got, plain, exact = _ssd_bwd_vs_f64(cuda_device, shape, torch.float32, 9)
     for a, p, e in zip(got, plain, exact):
+        assert _rel_err(a, e) <= 2 * _rel_err(p, e)
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_backward_bf16_as_accurate_as_plain_bf16(cuda_device, shape):
+    """Each bfloat16 gradient (bfloat16 inputs, the operands formed in
+    float32 as bfloat16 pairs) at most twice as far from the plain
+    version's float64 gradients as the bfloat16 plain version's."""
+    got, plain, exact = _ssd_bwd_vs_f64(cuda_device, shape, torch.bfloat16,
+                                        9)
+    for a, p, e in zip(got, plain, exact):
+        assert a.dtype == p.dtype
         assert _rel_err(a, e) <= 2 * _rel_err(p, e)
 
 
@@ -637,6 +662,25 @@ def test_ssd_backward_is_deterministic(cuda_device):
     dst = torch.randn(2, 8, 64, 128, generator=g, device=cuda_device)
     run = lambda: _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
         *t, chunk=64, impl="kernel"))
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 1, 256, 64, 128, 64),
+                                   (1, 12, 2, 256, 64, 64, 64)])
+def test_ssd_backward_head_blocks_are_deterministic(cuda_device, shape,
+                                                    dtype):
+    """Several tile blocks a group (16 heads: four blocks of four) and a
+    group whose six heads do not fill its last block: two backwards give
+    the same bits in both types."""
+    B, H, G, S, P, N, chunk = shape
+    ins = _ssd_inputs(cuda_device, B, H, G, S, P, N, dtype)
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    dy = torch.randn(B, H, S, P, generator=g, device=cuda_device)
+    dst = torch.randn(B, H, P, N, generator=g, device=cuda_device)
+    run = lambda: _ssd_grads(ins, dy, dst, lambda *t: ssd_scan_kernel(
+        *t, chunk=chunk, impl="kernel"))
     for a, b in zip(run(), run()):
         assert torch.equal(a, b)
 
