@@ -11,17 +11,23 @@ toolkit.  The script
 2. holds each kernel against its plain PyTorch version on the card at full
    shapes, float64 and float32, with integer-valued inputs, requiring exact
    equality, and times both on the card alone (CUDA events around calls
-   queued behind a spin kernel) and the kernel wrapper's host time;
+   queued behind a spin kernel) and the kernel wrapper's host time, beside
+   the time of one empty kernel timed the same way (``launch_floor_ms``);
+   the hop kernels also at the implicit cells' shape of 1024 ranks;
 3. places real jobs through the port's ``PlacementEngine`` (torch backend
    on ``cuda``, float64) — dense, fault-weighted, dense-guest, implicit
    torus and implicit fat-tree paths (512 ranks on 16384 and 8192 nodes)
    — and requires each hop-bytes to equal
    the reference package's NumPy result, and each kernel to have been
    launched on the path that needs it (launch counts are zeroed just
-   before each placement and read just after; the three cheap cells are
-   placed once more under ``torch.profiler`` for the device's busy time);
+   before each placement and read just after, with a line of each
+   kernel's most frequent launch shapes before each cell's line; the three
+   cheap cells are placed once more under ``torch.profiler`` for the
+   device's busy time);
 4. holds each kernel against its plain version again at the largest shape
    the placements handed it, and reports those times in the summary line;
+   the hop kernels also at the two shapes the placements launched them at
+   most often, in both dtypes;
 5. holds the model-stack kernels (``flash_attention``, ``rmsnorm``,
    ``swap_gain``) against their plain versions at the shapes smollm-135m
    gives them, within the reference's kernel-test tolerances (exactly, for
@@ -186,6 +192,7 @@ import subprocess
 import sys
 import time
 import traceback
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -773,7 +780,8 @@ def check_hop(dev, kernel: str, dt: str, B: int, m: int, k: int,
     nbytes = (B * (m + k) * len(ext) + B * m * k) * size
     bnd, by = bound_ms(nbytes, ops_per * B * m * k, dt)
     rec = dict(max_abs_err=err, ms=ms, host_ms=host, plain_ms=plain,
-               plain_queued_ahead=plain_ahead, bound_ms=bnd, bound_by=by)
+               plain_queued_ahead=plain_ahead, bound_ms=bnd, bound_by=by,
+               launch_floor_ms=LAUNCH_FLOOR_MS[0])
     emit({"phase": tag, "kernel": kernel, "dtype": dt, "shape": [B, m, k],
           "extents": list(ext), "exact": exact, **rec})
     if not exact:
@@ -781,20 +789,46 @@ def check_hop(dev, kernel: str, dt: str, B: int, m: int, k: int,
     return rec
 
 
+# device ms of one empty kernel, timed as a kernel launch is (cuda_ms): the
+# least a launch at any shape costs here; the latest reading
+LAUNCH_FLOOR_MS = [None]
+
+
+def launch_floor(tag: str) -> float:
+    """Time ``torch.cuda._sleep(0)``, a one-thread kernel that returns at
+    once, exactly as the kernels are timed, and emit it."""
+    import torch
+    ms, host, _ = cuda_ms(lambda: torch.cuda._sleep(0))
+    LAUNCH_FLOOR_MS[0] = ms
+    emit({"phase": tag, "launch_floor_ms": ms, "host_ms": host})
+    return ms
+
+
+# the implicit cells' shapes of 1024 ranks, cut to 512 in the placement
+# phases for the script's time
+HOP_USER_SHAPE = (2, 1024, 1024)
+
+
 def kernel_phase(dev) -> None:
     """Each kernel against its plain version at the full shapes TOFA's
-    16-candidate stack gives it, float64 and float32."""
+    16-candidate stack gives it, float64 and float32; the hop kernels also
+    at the implicit cells' shape of 1024 ranks."""
     import torch
+    launch_floor("kernels/launch-floor")
     for dt in ("float64", "float32"):
         check_swap_select(dev, dt, 16, 1024, "kernels")
-        check_hop(dev, "torus_hop", dt, 16, 1024, 1024, "kernels")
-        check_hop(dev, "fattree_hop", dt, 16, 1024, 1024, "kernels")
+        for name in ("torus_hop", "fattree_hop"):
+            check_hop(dev, name, dt, 16, 1024, 1024, "kernels")
+            check_hop(dev, name, dt, *HOP_USER_SHAPE, "kernels")
         torch.cuda.empty_cache()
 
 
 def main_shape_phase(dev) -> dict:
     """Each kernel at the largest shape the main path handed it (float64,
-    the main path's dtype); these numbers go into the summary line."""
+    the main path's dtype); these numbers go into the summary line.  The
+    hop kernels also at that shape in float32 and at the two shapes the
+    path launched them at most often, in both dtypes."""
+    launch_floor("kernels/main-shape/launch-floor")
     recs = {}
     for name in ("swap_select", "torus_hop", "fattree_hop"):
         shape = MAIN_PATH_SHAPES[name]
@@ -803,9 +837,15 @@ def main_shape_phase(dev) -> dict:
         if name == "swap_select":
             recs[name] = check_swap_select(dev, "float64", shape[0],
                                            shape[1], "kernels/main-shape")
-        else:
-            recs[name] = check_hop(dev, name, "float64", *shape,
-                                   "kernels/main-shape")
+            continue
+        recs[name] = check_hop(dev, name, "float64", *shape,
+                               "kernels/main-shape")
+        check_hop(dev, name, "float32", *shape, "kernels/main-shape")
+        for often, _ in MAIN_PATH_SHAPE_COUNTS[name].most_common(2):
+            for dt in ("float64", "float32"):
+                if often != tuple(shape):
+                    check_hop(dev, name, dt, *often,
+                              "kernels/frequent-shape")
     return recs
 
 
@@ -830,7 +870,8 @@ def place_phase(name: str, request, policies=("tofa",),
     import torch
     from repro_torch.core import mapping_torch
     from repro_torch.core.engine import PlacementEngine
-    from repro_torch.kernels import LAUNCHES, SHAPES, reset_launches
+    from repro_torch.kernels import (LAUNCHES, SHAPE_COUNTS, SHAPES,
+                                     reset_launches)
 
     engine = PlacementEngine()                      # torch, cuda, float64
     for pol in policies:
@@ -849,6 +890,8 @@ def place_phase(name: str, request, policies=("tofa",),
         for k, v in launches.items():
             MAIN_PATH_LAUNCHES[k] += v
             keep_shape(k, SHAPES[k])
+            MAIN_PATH_SHAPE_COUNTS[k].update(SHAPE_COUNTS[k])
+        emit_launch_shapes(key, SHAPE_COUNTS)
         p = np.asarray(plan.placement)
         warm_s, repeats = None, True
         if warm:
@@ -1043,6 +1086,27 @@ def patched(owner, name: str, wrap):
 # largest shape each was launched at there (see repro_torch.kernels.SHAPES)
 MAIN_PATH_LAUNCHES = {name: 0 for name in KERNELS}
 MAIN_PATH_SHAPES = {name: None for name in KERNELS}
+# launches by shape of the placement phases (repro_torch.kernels.SHAPE_COUNTS)
+MAIN_PATH_SHAPE_COUNTS = {name: Counter() for name in KERNELS}
+
+
+def emit_launch_shapes(key: str, counts: dict, top: int = 8) -> None:
+    """One line of the kernels a phase launched, each with its launches,
+    its number of distinct shapes and its ``top`` most frequent shapes;
+    every shape with its count goes to ``chiprun_out/launch_shapes.json``."""
+    launched = {name: c for name, c in counts.items() if c}
+    if not launched:
+        return
+    emit({"phase": f"{key}/launch-shapes", "kernels": {
+        name: {"launches": sum(c.values()), "distinct": len(c),
+               "top": [[list(shape), n] for shape, n in c.most_common(top)]}
+        for name, c in launched.items()}})
+    path = OUT_DIR / "launch_shapes.json"
+    if path.parent.is_dir():
+        every = json.loads(path.read_text()) if path.is_file() else {}
+        every[key] = {name: [[list(shape), n] for shape, n in c.most_common()]
+                      for name, c in launched.items()}
+        path.write_text(json.dumps(every))
 
 
 def keep_shape(name: str, shape) -> None:
@@ -3343,6 +3407,7 @@ def main() -> int:
     libs = _build.build_all()
     OUT_DIR.mkdir(exist_ok=True)
     LOG.write_text("")
+    (OUT_DIR / "launch_shapes.json").unlink(missing_ok=True)
     (OUT_DIR / "ptxas.txt").write_text("".join(
         f"== {name}\n{log}\n" for name, log in _build.BUILD_LOGS.items()))
     emit({"phase": "build", "s": time.perf_counter() - t0,

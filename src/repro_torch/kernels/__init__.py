@@ -13,7 +13,9 @@ and ``flash_attention_bwd``, (rows, D) for ``rmsnorm`` and (B, H, G, S,
 P, N, chunk) for ``ssd_scan`` and ``ssd_scan_bwd``.  The two ``_bwd``
 kernels are the backward passes of ``flash_attention`` and ``ssd_scan``
 (the ``autograd.Function`` classes of their wrappers launch them); each
-counts one launch a backward.
+counts one launch a backward.  ``SHAPE_COUNTS`` keeps, per kernel, a
+:class:`collections.Counter` of launches by shape since the last reset,
+so a run can say which shapes the path launches most often.
 
 Every wrapper chooses by the device of the tensors it is handed
 (:func:`use_kernel`): ``impl="auto"`` launches the CUDA kernel for tensors
@@ -23,6 +25,7 @@ on a GPU and runs the plain version for tensors on the CPU;
 to build or launch raises; nothing falls back.
 """
 import math
+from collections import Counter
 
 import torch
 
@@ -30,11 +33,13 @@ LAUNCHES = {"swap_select": 0, "torus_hop": 0, "fattree_hop": 0,
             "swap_gain": 0, "flash_attention": 0, "rmsnorm": 0,
             "ssd_scan": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 SHAPES: dict = {name: None for name in LAUNCHES}
+SHAPE_COUNTS: dict = {name: Counter() for name in LAUNCHES}
 
 
 def count_launch(name: str, shape: tuple) -> None:
     """Record one launch of kernel ``name`` at ``shape``."""
     LAUNCHES[name] += 1
+    SHAPE_COUNTS[name][shape] += 1
     old = SHAPES[name]
     if old is None or math.prod(shape) > math.prod(old):
         SHAPES[name] = tuple(shape)
@@ -44,6 +49,7 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         SHAPES[name] = None
+        SHAPE_COUNTS[name].clear()
 
 
 def use_kernel(impl: str, t: torch.Tensor) -> bool:
@@ -62,9 +68,18 @@ def use_kernel(impl: str, t: torch.Tensor) -> bool:
 
 def launch(lib, fn, name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``fn(*args, stream)`` of ``lib`` on
-    ``device``'s current stream; raise when it returns a CUDA error."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``device``'s current stream; raise when it returns a CUDA error.
+
+    Where ``device`` is the current device already, the call enters no
+    device context and reads the raw stream handle without building a
+    ``torch.cuda.Stream``: at the placement path's small shapes the
+    wrapper's host time is the larger cost of a launch."""
+    idx = device.index
+    if idx is not None and idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.error_string(err).decode()} ({err})")

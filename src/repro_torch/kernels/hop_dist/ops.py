@@ -77,22 +77,43 @@ def fattree_hop_pairs_np(cu, cv) -> np.ndarray:
 
 _P, _I64, _INT, _F64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_double)
+_ARGTYPES = {"torus": [_P, _P, _P, _I64, _I64, _I64, _INT,
+                       _F64, _F64, _F64, _F64, _P],
+             "fattree": [_P, _P, _P, _I64, _I64, _I64, _P]}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# What every call would repeat, done once: the typed C entry point per
+# (metric, dtype) and the torus launch arguments per dims tuple.  The
+# implicit placement path calls these wrappers hundreds of times a
+# placement at shapes where the launch itself takes microseconds, so the
+# wrapper's host time is the larger cost there.
+_FNS: dict = {}
+_TORUS_ARGS: dict = {}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("hop_dist")
-    if not hasattr(lib, "_typed"):
-        for name in ("torus_hop_f32", "torus_hop_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _INT,
-                           _F64, _F64, _F64, _F64, _P]
-            fn.restype = ctypes.c_int
-        for name in ("fattree_hop_f32", "fattree_hop_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [_P, _P, _P, _I64, _I64, _I64, _P]
-            fn.restype = ctypes.c_int
-        lib._typed = True
-    return lib
+def _fn(kind: str, dtype: torch.dtype):
+    fn = _FNS.get((kind, dtype))
+    if fn is None:
+        lib = _build.load("hop_dist")
+        fn = getattr(lib, f"{kind}_hop_{_SUFFIX[dtype]}")
+        fn.argtypes = _ARGTYPES[kind]
+        fn.restype = ctypes.c_int
+        _FNS[(kind, dtype)] = fn
+    return fn
+
+
+def _torus_args(dims) -> tuple:
+    """(nd, d0, d1, d2, d3) of the torus entry points for ``dims``."""
+    key = dims if isinstance(dims, tuple) else tuple(dims)
+    args = _TORUS_ARGS.get(key)
+    if args is None:
+        ints = tuple(int(d) for d in key)
+        if not 1 <= len(ints) <= 4:
+            raise ValueError(f"the torus kernel takes 1-4 dims, got {ints}")
+        args = (len(ints), *(float(d) for d in ints),
+                *(0.0,) * (4 - len(ints)))
+        _TORUS_ARGS[key] = args
+    return args
 
 
 def _as_batched(cu: torch.Tensor, cv: torch.Tensor, width: int):
@@ -108,8 +129,7 @@ def _as_batched(cu: torch.Tensor, cv: torch.Tensor, width: int):
                          f"not match batch and width {width}")
     if cu.device != cv.device:
         raise ValueError(f"coords on {cu.device} and {cv.device}")
-    if cu.dtype != cv.dtype or cu.dtype not in (torch.float32,
-                                                 torch.float64):
+    if cu.dtype != cv.dtype or cu.dtype not in _SUFFIX:
         raise TypeError(f"coords must share float32|float64, got "
                         f"{cu.dtype} and {cv.dtype}")
     if not (cu.is_contiguous() and cv.is_contiguous()):
@@ -117,27 +137,27 @@ def _as_batched(cu: torch.Tensor, cv: torch.Tensor, width: int):
     return cu, cv
 
 
+def _launch(kind: str, name: str, cu: torch.Tensor, cv: torch.Tensor,
+            width: int, *extra) -> torch.Tensor:
+    """Validate, allocate the (B, m, k) output, launch, count the launch."""
+    cu3, cv3 = _as_batched(cu, cv, width)
+    B, m, k = cu3.shape[0], cu3.shape[1], cv3.shape[1]
+    out = torch.empty((B, m, k), dtype=cu3.dtype, device=cu3.device)
+    launch(_build.load("hop_dist"), _fn(kind, cu3.dtype), name, cu3.device,
+           cu3.data_ptr(), cv3.data_ptr(), out.data_ptr(), B, m, k, *extra)
+    count_launch(name, (B, m, k))
+    return out if cu.ndim == 3 else out[0]
+
+
 def torus_hop(cu: torch.Tensor, cv: torch.Tensor, dims, *,
               impl: str = "auto") -> torch.Tensor:
     """All-pairs torus hops: (B, m, nd), (B, k, nd) -> (B, m, k), or the
     unbatched (m, nd), (k, nd) -> (m, k).  Output dtype follows the
     coordinates (float32 or float64 holding exact small integers)."""
-    dims = tuple(int(d) for d in dims)
     if not use_kernel(impl, cu):
-        return torus_hop_pairs_ref(cu, cv, dims)
-    if not 1 <= len(dims) <= 4:
-        raise ValueError(f"the torus kernel takes 1-4 dims, got {dims}")
-    batched = cu.ndim == 3
-    cu3, cv3 = _as_batched(cu, cv, len(dims))
-    B, m, k = cu3.shape[0], cu3.shape[1], cv3.shape[1]
-    out = torch.empty((B, m, k), dtype=cu3.dtype, device=cu3.device)
-    lib = _lib()
-    fn = lib.torus_hop_f64 if cu3.dtype == torch.float64 else lib.torus_hop_f32
-    d = [float(x) for x in dims] + [0.0] * (4 - len(dims))
-    launch(lib, fn, "torus_hop", cu3.device, cu3.data_ptr(), cv3.data_ptr(),
-           out.data_ptr(), B, m, k, len(dims), *d)
-    count_launch("torus_hop", (B, m, k))
-    return out if batched else out[0]
+        return torus_hop_pairs_ref(cu, cv, tuple(int(d) for d in dims))
+    args = _torus_args(dims)
+    return _launch("torus", "torus_hop", cu, cv, args[0], *args)
 
 
 def fattree_hop(cu: torch.Tensor, cv: torch.Tensor, *,
@@ -147,14 +167,4 @@ def fattree_hop(cu: torch.Tensor, cv: torch.Tensor, *,
     (m, k).  The caller applies ``scale * hops + penalty`` in torch."""
     if not use_kernel(impl, cu):
         return fattree_hop_pairs_ref(cu, cv)
-    batched = cu.ndim == 3
-    cu3, cv3 = _as_batched(cu, cv, 3)
-    B, m, k = cu3.shape[0], cu3.shape[1], cv3.shape[1]
-    out = torch.empty((B, m, k), dtype=cu3.dtype, device=cu3.device)
-    lib = _lib()
-    fn = (lib.fattree_hop_f64 if cu3.dtype == torch.float64
-          else lib.fattree_hop_f32)
-    launch(lib, fn, "fattree_hop", cu3.device, cu3.data_ptr(),
-           cv3.data_ptr(), out.data_ptr(), B, m, k)
-    count_launch("fattree_hop", (B, m, k))
-    return out if batched else out[0]
+    return _launch("fattree", "fattree_hop", cu, cv, 3)

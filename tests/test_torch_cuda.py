@@ -114,6 +114,72 @@ def test_hop_kernels_equal_plain_versions(cuda_device, dtype):
                        fattree_hop_pairs_ref(f[0], g[0]))
 
 
+# (B, m, k) at the edges of hop_dist.cu's map: k of 1-3 and odd, k not a
+# multiple of 4 or of 2, m under a tile's rows and a tile of many rows of
+# one column (TX 1, TY 128), ragged column tiles, the chunk refines'
+# (1, n, n) and the path's and TOFA's stacks
+HOP_EDGE_SHAPES = [(1, 1, 1), (2, 3, 1), (1, 5, 2), (3, 7, 3), (2, 1, 37),
+                   (1, 9, 6), (2, 30, 10), (1, 2, 256), (4, 3, 130),
+                   (3, 700, 1), (2, 300, 200),
+                   (1, 4, 4), (1, 17, 17), (1, 33, 33), (1, 64, 64),
+                   (2, 512, 512), (16, 1024, 1024)]
+
+
+def _hop_coords(rng, ext, B, n, dtype, device, offset=0):
+    """(B, n, len(ext)) integer coordinates below ``ext``; with ``offset``
+    a contiguous slice that starts ``offset`` batches into its storage."""
+    full = np.stack([rng.integers(0, e, (B + offset, n)) for e in ext], -1)
+    return torch.tensor(full, dtype=dtype, device=device)[offset:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,m,k", HOP_EDGE_SHAPES)
+def test_hop_kernels_equal_plain_versions_at_edges(cuda_device, dtype, B, m,
+                                                   k):
+    rng = np.random.default_rng(B * 7919 + m * 31 + k)
+    for dims in [(32, 32, 16), (5, 7), (2, 3, 4, 3), (9,)]:
+        cu = _hop_coords(rng, dims, B, m, dtype, cuda_device, offset=1)
+        cv = _hop_coords(rng, dims, B, k, dtype, cuda_device)
+        assert cu.storage_offset() > 0 and cu.is_contiguous()
+        assert torch.equal(hop_ops.torus_hop(cu, cv, dims, impl="kernel"),
+                           torus_hop_pairs_ref(cu, cv, dims))
+    cu = _hop_coords(rng, (32, 16, 16), B, m, dtype, cuda_device, offset=1)
+    cv = _hop_coords(rng, (32, 16, 16), B, k, dtype, cuda_device)
+    assert torch.equal(hop_ops.fattree_hop(cu, cv, impl="kernel"),
+                       fattree_hop_pairs_ref(cu, cv))
+    # coordinates of few distinct values, so that every level matches; the
+    # column table a slice too
+    f = _hop_coords(rng, (2, 2, 2), B, m, dtype, cuda_device)
+    g = _hop_coords(rng, (2, 2, 2), B, k, dtype, cuda_device, offset=1)
+    assert torch.equal(hop_ops.fattree_hop(f, g, impl="kernel"),
+                       fattree_hop_pairs_ref(f, g))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,m,k", [(2, 30, 64), (1, 9, 8), (2, 512, 512)])
+def test_hop_kernels_write_an_unaligned_output_exactly(cuda_device, dtype,
+                                                       B, m, k):
+    """An output that starts one element past 16-byte alignment is written
+    exactly, and nothing before or after it."""
+    rng = np.random.default_rng(5)
+    dims = (32, 32, 16)
+    cu = _hop_coords(rng, dims, B, m, dtype, cuda_device)
+    cv = _hop_coords(rng, dims, B, k, dtype, cuda_device)
+    for kind, extra, want in [
+            ("torus", hop_ops._torus_args(dims),
+             torus_hop_pairs_ref(cu, cv, dims)),
+            ("fattree", (), fattree_hop_pairs_ref(cu, cv))]:
+        buf = torch.full((B * m * k + 2,), -7.0, dtype=dtype,
+                         device=cuda_device)
+        err = hop_ops._fn(kind, dtype)(
+            cu.data_ptr(), cv.data_ptr(), buf[1:].data_ptr(), B, m, k,
+            *extra, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(buf[1:-1].view(B, m, k), want)
+        assert buf[0].item() == -7.0 and buf[-1].item() == -7.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,n_valid", [(16, 16), (200, 180), (300, 256)])
 def test_swap_select_equals_plain_version(cuda_device, dtype, n, n_valid):

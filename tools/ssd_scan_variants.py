@@ -1,7 +1,7 @@
 """Build variants of a CUDA kernel source and compare them on the card.
 
-    python3 tools/ssd_scan_variants.py [--kernel ssd_scan|flash_attention]
-        [SOURCE.cu ...]
+    python3 tools/ssd_scan_variants.py
+        [--kernel ssd_scan|flash_attention|hop_dist] [SOURCE.cu ...]
 
 Each source (by default the package's own source of the kernel; every
 variant exports the kernel's C entry points) is compiled alone with the
@@ -17,6 +17,15 @@ and spill report are printed.  Then every variant runs the same inputs:
 * ``flash_attention``: smollm-135m's prefill (2, 9, 3, 2048, 2048, 64)
   causal in bfloat16 and float32, and the MLA-width (1, 16, 16, 1024,
   1024, 192) causal in bfloat16.
+* ``hop_dist``: ``torus_hop`` on a (32, 32, 16) torus and ``fattree_hop``
+  on a k 32 fat tree, integer coordinates, float64 and float32, at the
+  implicit placement path's largest shape (2, 512, 512), the two shapes it
+  launches most often (chunk refines of one candidate), the implicit
+  cells' shape at 1024 ranks (2, 1024, 1024) and TOFA's 16-candidate
+  stack (16, 1024, 1024).  These launches last microseconds, so they are
+  timed as ``chip_smoke.py`` times a kernel (``cuda_ms``: calls queued
+  behind a spin kernel, so the host's launch cost stays out), and each
+  output is also compared with the plain version's.
 
 Device times are CUDA events around 20 calls, median of 5, taken in the
 order first, ..., last, last, ..., first; each variant's figure is the
@@ -40,6 +49,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+from chip_smoke import cuda_ms  # noqa: E402
 
 CASES = {
     # (B, H, G, S, P, N, chunk, dtype)
@@ -52,7 +63,15 @@ CASES = {
     "flash_attention": [(2, 9, 3, 2048, 2048, 64, 1, "bfloat16"),
                         (1, 16, 16, 1024, 1024, 192, 1, "bfloat16"),
                         (2, 9, 3, 2048, 2048, 64, 1, "float32")],
+    # (kernel, B, m, k, dtype)
+    "hop_dist": [(name, *shape, dt)
+                 for dt in ("float64", "float32")
+                 for name in ("torus_hop", "fattree_hop")
+                 for shape in ((2, 512, 512), (1, 4, 4), (1, 8, 8),
+                               (2, 1024, 1024), (16, 1024, 1024))],
 }
+HOP_TORUS = (32, 32, 16)
+HOP_FATTREE = (32, 16, 16)     # (pod, edge, host) extents of k 32
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 
 
@@ -68,13 +87,25 @@ def build(src: Path, out_dir: Path, tag: str, kernel: str):
                            f"{proc.stderr}")
     log = proc.stdout + proc.stderr
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    names = re.findall(r"Compiling entry function '([^']+)'", log)
     spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
     print(json.dumps({"build": tag, "source": str(src), "nvcc_s": wall,
                       "instances": len(regs), "registers": regs,
+                      "names": names,
                       "spill_store_bytes": spills}), flush=True)
     lib = ctypes.CDLL(str(out))
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
+    if kernel == "hop_dist":
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"torus_hop_{dt}")
+            fn.argtypes = [_P] * 3 + [_I64] * 3 + [ctypes.c_int] \
+                + [ctypes.c_double] * 4 + [_P]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"fattree_hop_{dt}")
+            fn.argtypes = [_P] * 3 + [_I64] * 3 + [_P]
+            fn.restype = ctypes.c_int
+        return lib
     if kernel == "flash_attention":
         # sources from the backward on take an lse pointer after o
         lib.with_lse = "void* lse" in Path(src).read_text()
@@ -103,6 +134,15 @@ def inputs(kernel: str, case):
     g = torch.Generator(device="cuda").manual_seed(1)
     rand = lambda *s: torch.randn(s, generator=g, device="cuda")
     tdt = getattr(torch, case[-1])
+    if kernel == "hop_dist":
+        import numpy as np
+        name, B, m, k, _ = case
+        ext = HOP_TORUS if name == "torus_hop" else HOP_FATTREE
+        rng = np.random.default_rng(1)
+        return tuple(torch.tensor(np.stack([rng.integers(0, e, (B, n))
+                                            for e in ext], -1),
+                                  dtype=tdt, device="cuda")
+                     for n in (m, k))
     if kernel == "flash_attention":
         B, H, Hkv, Sq, Sk, Dh, _, _ = case
         return (rand(B, H, Sq, Dh).to(tdt), rand(B, Hkv, Sk, Dh).to(tdt),
@@ -119,7 +159,17 @@ def caller(lib, kernel: str, case, data):
     import torch
     stream = lambda: torch.cuda.current_stream().cuda_stream
     f32 = case[-1] == "float32"
-    if kernel == "flash_attention":
+    if kernel == "hop_dist":
+        name, B, m, k, _ = case
+        cu, cv = data
+        o = torch.empty((B, m, k), dtype=cu.dtype, device="cuda")
+        fn = getattr(lib, f"{name}_{'f32' if f32 else 'f64'}")
+        extra = ((len(HOP_TORUS), *map(float, HOP_TORUS), 0.0)
+                 if name == "torus_hop" else ())
+        args = lambda: (cu.data_ptr(), cv.data_ptr(), o.data_ptr(), B, m,
+                        k, *extra, stream())
+        outs = (o,)
+    elif kernel == "flash_attention":
         B, H, Hkv, Sq, Sk, Dh, causal, _ = case
         q, k, v = data
         o = torch.empty_like(q)
@@ -152,6 +202,17 @@ def caller(lib, kernel: str, case, data):
         if err:
             raise RuntimeError(f"launch failed: {lib.error_string(err)}")
     return run, outs
+
+
+def plain(kernel: str, case, data):
+    """The plain version's outputs, where the comparison is exact."""
+    from repro_torch.kernels.hop_dist.ref import (fattree_hop_pairs_ref,
+                                                  torus_hop_pairs_ref)
+    if kernel != "hop_dist":
+        return None
+    if case[0] == "torus_hop":
+        return (torus_hop_pairs_ref(*data, HOP_TORUS),)
+    return (fattree_hop_pairs_ref(*data),)
 
 
 def device_ms(run, reps: int = 20, trials: int = 5) -> float:
@@ -195,8 +256,12 @@ def main(argv=None) -> int:
         runs = [caller(lib, args.kernel, case, data) for lib in libs]
         times = {i: [] for i in range(len(libs))}
         for i in order:
-            times[i].append(device_ms(runs[i][0]))
+            # launches of microseconds: time the card alone, as chip_smoke
+            times[i].append(cuda_ms(runs[i][0])[0]
+                            if args.kernel == "hop_dist"
+                            else device_ms(runs[i][0]))
         ref = runs[0][1]
+        want = plain(args.kernel, case, data)
         for i, (_, outs) in enumerate(runs):
             diff = max(float((a.float() - b.float()).abs().max())
                        for a, b in zip(outs, ref))
@@ -206,7 +271,12 @@ def main(argv=None) -> int:
                               "ms": statistics.mean(times[i]),
                               "ms_each": times[i],
                               "max_abs_diff_vs_v0": diff,
-                              "bit_equal_to_v0": equal}), flush=True)
+                              "bit_equal_to_v0": equal,
+                              **({} if want is None else {
+                                  "bit_equal_to_plain": all(
+                                      bool(torch.equal(a, b))
+                                      for a, b in zip(outs, want))})}),
+                  flush=True)
         del data, runs
         torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
