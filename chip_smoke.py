@@ -36,6 +36,8 @@ toolkit.  The script
    float32 ``flash_attention`` (3xTF32 on the tensor cores) is also held,
    beside its float32 plain version, to the plain version run in float64 at
    the three model shapes, and may be at most twice as far from it;
+   ``swap_gain`` also at the largest dense guest's (4096, 4096) and, at
+   (1024, 1024), with the L2 flushed before each timed call (``cold_ms``);
    ``rmsnorm`` and ``swap_gain`` are then driven once through their entry
    points;
 6. runs smollm-135m at full width and depth (30 layers, float32,
@@ -678,6 +680,41 @@ def cuda_ms(fn, reps: int = 20, trials: int = 5, warmup: int = 3,
         dev.append(a.elapsed_time(b) / reps)
         host.append(queued / reps * 1e3)
     return statistics.median(dev), statistics.median(host), all_ahead
+
+
+def cold_ms(fn, trials: int = 25, warmup: int = 3,
+            flush_bytes: int = 1 << 27) -> tuple[float, bool]:
+    """(device ms, queued ahead) of one call of ``fn()`` that finds the L2
+    cold, median of ``trials``.  Before each trial a write of
+    ``flush_bytes`` (128 MB, over twice the 50 MB L2) evicts what the last
+    call left there; then a spin kernel (as in ``cuda_ms``), and CUDA events
+    around the one call alone.  A trial whose first event the card reached
+    before the host had queued the call is repeated with a spin twice as
+    long; the second value says whether every kept trial stayed ahead."""
+    import torch
+    flush = torch.empty(flush_bytes // 4, dtype=torch.float32,
+                        device=torch.cuda.current_device())
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    dev, spin = [], 1 << 22
+    while len(dev) < trials:
+        flush.fill_(float(len(dev)))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        fn()
+        ahead = not a.query()
+        b.record()
+        b.synchronize()
+        if not ahead:
+            if spin >= 1 << 30:
+                return statistics.median(dev or [a.elapsed_time(b)]), False
+            spin *= 2
+            continue
+        dev.append(a.elapsed_time(b))
+    return statistics.median(dev), True
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str) -> tuple[float, str]:
@@ -1694,6 +1731,8 @@ FLASH_NEMOTRON = (2, 96, 8, 2048, 2048, 192)
 PHI35_DEPTH = 6
 RMSNORM_MAIN = (2 * 2048, 576)           # (rows, D): smollm's activations
 SWAP_GAIN_N = 1024
+# the largest dense guest: every node of the 16^3 torus at lazy_threshold
+SWAP_GAIN_LARGE = 4096
 
 
 def _record(max_abs_err, ms, host, plain, plain_ahead, library, nbytes,
@@ -1802,10 +1841,13 @@ def check_rmsnorm(dev, dt: str, rows: int, D: int, tag: str) -> dict:
     return rec
 
 
-def check_swap_gain(dev, dt: str, n: int, tag: str) -> dict:
+def check_swap_gain(dev, dt: str, n: int, tag: str,
+                    cold: bool = False) -> dict:
     """swap_gain against its plain version at (n, n), integer-valued
-    inputs, several movers: exact equality.  No single PyTorch call
-    computes the gains row (library_ms null)."""
+    inputs, several movers: exact equality.  Timed L2-hot (``cuda_ms``),
+    or with ``cold`` L2-cold (``cold_ms``), the plain version the same way;
+    the record carries the empty launch's time and the byte bound beside
+    it.  No single PyTorch call computes the gains row (library_ms null)."""
     import numpy as np
     import torch
     from repro_torch.kernels.swap_gain.ops import swap_gain
@@ -1827,13 +1869,23 @@ def check_swap_gain(dev, dt: str, n: int, tag: str) -> dict:
         exact &= bool(torch.equal(got, want))
         err = max(err, float((got - want).abs().max()))
     iv = torch.tensor([n // 3], device=dev)
-    ms, host, _ = cuda_ms(lambda: swap_gain(M, G, contrib, iv,
-                                            impl="kernel"))
-    plain, _, plain_ahead = cuda_ms(
-        lambda: swap_gain_ref(M[None], G, contrib[None], iv), strict=False)
+    run = lambda: swap_gain(M, G, contrib, iv, impl="kernel")
+    ref = lambda: swap_gain_ref(M[None], G, contrib[None], iv)
+    if cold:
+        ms, _ = cold_ms(run)
+        plain, plain_ahead = cold_ms(ref)
+        _, host, _ = cuda_ms(run)
+    else:
+        ms, host, _ = cuda_ms(run)
+        plain, _, plain_ahead = cuda_ms(ref, strict=False)
     size = M.element_size()
     rec = _record(err, ms, host, plain, plain_ahead, None,
                   (2 * n * n + 2 * n) * size + 8, 4.0 * n * n, dt)
+    rec.update(launch_floor_ms=LAUNCH_FLOOR_MS[0],
+               l2="cold" if cold else "hot")
+    if cold:        # one empty kernel between events, as the call is timed
+        rec["launch_floor_cold_ms"] = cold_ms(
+            lambda: torch.cuda._sleep(0))[0]
     emit({"phase": tag, "kernel": "swap_gain", "dtype": dt, "shape": [n, n],
           "exact": exact, **rec})
     if not exact:
@@ -2245,6 +2297,9 @@ def model_kernel_phase(dev) -> dict:
         rec = check_swap_gain(dev, dt, SWAP_GAIN_N, "kernels/model")
         if dt == "float64":          # the refiner's default dtype
             recs["swap_gain"][(SWAP_GAIN_N,)] = rec
+        check_swap_gain(dev, dt, SWAP_GAIN_N, "kernels/model", cold=True)
+        check_swap_gain(dev, dt, SWAP_GAIN_LARGE, "kernels/model")
+        torch.cuda.empty_cache()
     for dt in ("float32", "bfloat16"):
         for shape in SSD_SHAPES:
             check_ssd(dev, dt, shape, "kernels/model", timed=False)

@@ -4,8 +4,9 @@ Each ``.cu`` source in this package has a plain C interface (no PyTorch
 headers) and exports ``error_string`` for the CUDA error codes its entry
 points return, so one ``nvcc`` call per source takes seconds.  Sources are
 compiled at first use for ``sm_90a`` under a name that carries a digest of
-the source and the flags, so an edited source is never served a stale
-library.  The libraries go to ``$REPRO_TORCH_BUILD_DIR`` when it is
+the source, the package's shared headers (``*.cuh`` here, found through
+``-I``) and the flags, so an edited source or header is never served a
+stale library.  The libraries go to ``$REPRO_TORCH_BUILD_DIR`` when it is
 set, else to ``build/torch_ext/`` at the root of the checkout the package
 runs from, else (an installed package) to ``repro_torch/torch_ext`` in
 the user's cache directory (``$XDG_CACHE_HOME``, by default
@@ -59,6 +60,9 @@ NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "--split-compile=0", "-Xptxas", "-v")
 
+# where the sources find the headers they share (sm_count.cuh)
+INCLUDE_FLAGS = ("-I", str(_PKG))
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 # ptxas resource report (registers, shared memory, spills) per source
@@ -86,7 +90,8 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> Path:
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(_PKG.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -98,7 +103,8 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    cmd = [_nvcc(), *NVCC_FLAGS, *INCLUDE_FLAGS, "-o", str(tmp),
+           str(SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

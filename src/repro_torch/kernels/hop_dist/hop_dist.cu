@@ -52,6 +52,8 @@
 
 #include <climits>
 
+#include "sm_count.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;          // threads a block
@@ -61,7 +63,6 @@ constexpr int kMaxTileRows = 64;     // TY * R: the staging buffer's rows
 constexpr int kMinBlocksPerSM = 1;   // R halves until the grid has these
 constexpr int kRowUnroll = 4;        // rows a thread has in flight
 constexpr int kMaxGridYZ = 65535;    // the grid's y and z limit
-constexpr int kMaxDevices = 64;
 
 // One launch's output and tile width; the grid is (column tiles, row
 // tiles, B).
@@ -141,21 +142,6 @@ hop_kernel(const T* __restrict__ cu, const T* __restrict__ cv,
       u[d] = R > 1 ? srow[lr * ND + d] : rows[lr * ND + d];
     o[static_cast<int64_t>(lr) * g.k] = f(u, v);
   }
-}
-
-int sm_count() {
-  static int counts[kMaxDevices] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
-    return 132;
-  if (counts[dev] == 0) {
-    int n = 0;
-    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess || n <= 0)
-      n = 132;
-    counts[dev] = n;
-  }
-  return counts[dev];
 }
 
 template <typename T, int ND, class Metric>

@@ -1,8 +1,9 @@
 """swap_gain — the gains row and the fused swap-select step, dispatched by
 tensor device (see :mod:`repro_torch.kernels` for ``impl``).
 
-Both CUDA kernels live in ``swap_select.cu`` and share its per-column
-arithmetic; their plain PyTorch versions are in :mod:`.ref`.
+Both CUDA kernels live in ``swap_select.cu``: the fused step one warp a
+column, the gains row in tiles of rows with 16-byte loads where n and the
+operands' addresses allow; their plain PyTorch versions are in :mod:`.ref`.
 """
 from __future__ import annotations
 

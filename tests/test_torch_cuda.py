@@ -68,7 +68,8 @@ from repro_torch.kernels.ssd_scan.ref import (  # noqa: E402
     ssd_chunk_parallel, ssd_chunked_folded, ssd_scan_ref)
 from repro_torch.kernels.swap_gain.ops import (swap_gain,  # noqa: E402
                                                swap_select)
-from repro_torch.kernels.swap_gain.ref import (swap_gain_ref,  # noqa: E402
+from repro_torch.kernels.swap_gain.ref import (GAIN_EPS,  # noqa: E402
+                                               swap_gain_ref,
                                                swap_select_ref)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -84,6 +85,19 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the checkout, loaded as a module:
+    its storm runner and its MoE routing rule."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _select_inputs(n, B, seed=0):
@@ -518,8 +532,22 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# the reference's swap_gain tolerances on real-valued inputs, as shares of
+# the row's largest magnitude (tests/test_torch_kernels.py)
+GAIN_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+def _placed(a, dtype, device, offset=0):
+    """``a`` as a contiguous (n, n) view ``offset`` values into its storage:
+    a nonzero offset starts it off a 16-byte boundary."""
+    buf = torch.zeros(a.size + offset, dtype=dtype, device=device)
+    view = buf[offset:].view(a.shape)
+    view.copy_(torch.tensor(a, dtype=dtype))
+    return view
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [16, 200, 1024])
+@pytest.mark.parametrize("n", [1, 3, 16, 33, 200, 1023, 1024, 1025, 4096])
 def test_swap_gain_kernel_equals_plain(cuda_device, dtype, n):
     M, G, contrib = (torch.tensor(a, dtype=dtype, device=cuda_device)
                      for a in _select_inputs(n, B=1))
@@ -529,6 +557,73 @@ def test_swap_gain_kernel_equals_plain(cuda_device, dtype, n):
         want = swap_gain_ref(M, G, contrib, iv)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [3, 33, 1023, 1024, 1025, 4096])
+def test_swap_gain_kernel_real_valued(cuda_device, dtype, n):
+    """Real-valued inputs (the distribution of the reference's float64
+    swap_gain test): within the tolerance of the row's largest magnitude."""
+    rng = np.random.default_rng(n)
+    A = rng.random((n, n))
+    S = rng.random((n, n)) * (rng.random((n, n)) < 0.2)
+    M = torch.tensor(A + A.T, dtype=dtype, device=cuda_device)
+    G = torch.tensor(S + S.T, dtype=dtype, device=cuda_device)
+    contrib = (G * M).sum(-1)
+    tol = GAIN_TOL[dtype]
+    for i in (0, n // 2, n - 1):
+        iv = torch.tensor([i], device=cuda_device)
+        got = swap_gain(M, G, contrib, iv, impl="kernel")
+        want = swap_gain_ref(M[None], G, contrib[None], iv)[0]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [33, 1024, 1025])
+@pytest.mark.parametrize("offsets", [(1, 1), (1, 0), (0, 1)])
+def test_swap_gain_kernel_unaligned_views(cuda_device, dtype, n, offsets):
+    """M and G as contiguous views that start one value past a 16-byte
+    boundary: the kernel reads them one value a load, and its row still
+    equals the plain version's bit for bit."""
+    Mn, Gn, cn = _select_inputs(n, B=1, seed=3)
+    M = _placed(Mn[0], dtype, cuda_device, offsets[0])
+    G = _placed(Gn, dtype, cuda_device, offsets[1])
+    contrib = torch.tensor(cn[0], dtype=dtype, device=cuda_device)
+    assert M.is_contiguous() and G.is_contiguous()
+    assert (M.data_ptr() % 16 != 0) == bool(offsets[0])
+    for i in (0, n // 3, n - 1):
+        iv = torch.tensor([i], device=cuda_device)
+        got = swap_gain(M, G, contrib, iv, impl="kernel")
+        want = swap_gain_ref(M[None], G, contrib[None], iv)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,n_valid", [(16, 16), (200, 180), (1024, 1000),
+                                       (1025, 1025)])
+def test_swap_gain_row_masked_is_swap_select(cuda_device, dtype, n,
+                                             n_valid):
+    """The gains-row kernel's row with g[i] = 0, the columns from n_valid
+    on at -inf, the first-occurrence argmax and the accept rule equals the
+    fused swap_select kernel's (gain, j) bit for bit (integer-valued
+    inputs): the two kernels compute one function."""
+    M, G, contrib = (torch.tensor(a, dtype=dtype, device=cuda_device)
+                     for a in _select_inputs(n, B=4, seed=5))
+    movers = [0, n // 3, n_valid - 1, n - 1]
+    i = torch.tensor(movers, device=cuda_device)
+    gain, j = swap_select(M, G, contrib, i, n_valid, impl="kernel")
+    for b, mover in enumerate(movers):
+        g = swap_gain(M[b], G, contrib[b], i[b:b + 1], impl="kernel")
+        g[mover] = 0.0
+        g[n_valid:] = float("-inf")
+        best = int(torch.argmax(g))
+        accept = bool(g[best] > GAIN_EPS) and mover < n_valid
+        torch.cuda.synchronize()
+        assert torch.equal(gain[b], g[best])
+        assert int(j[b]) == (best if accept else mover)
 
 
 @pytest.mark.parametrize("S", [64, 2048])
@@ -863,20 +958,35 @@ def test_moe_forward_kernel_matches_plain(cuda_device, arch, over, Dh):
     """Reduced MoE models with their own attention head dims, B 1 x 2048
     (the flash branch): deepseek-v2-lite's MLA (qk 128 + 64, V padded from
     128 to 192) through the float32 Dh 192 instance, phi3.5-moe's GQA
-    through the Dh 128 one; held to the plain version's forward."""
+    through the Dh 128 one; held to the plain version's forward by the
+    routing rule of chip_smoke.py's MoE cells (``routing_verdict``): a
+    token routed to other experts must be a near-tie of the router unless
+    an earlier flip of its row reaches it, and the logits before each
+    row's first flip agree within 1e-4."""
+    chip_smoke = _chip_smoke()
     cfg = reduced(get_arch(arch), **over)
     if cfg.mla is not None:
         cfg = dataclasses.replace(cfg, mla=get_arch(arch).mla)
     model = M.init(cfg, seed=0, device=cuda_device)
-    toks = torch.randint(0, cfg.vocab, (1, 2048), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (1, 2048), generator=g,
+                         device=cuda_device)
+    got_routes, want_routes = [], []
     reset_launches()
     with torch.inference_mode():
-        got = model(toks, impl="kernel")
+        with chip_smoke.recording_routes(got_routes):
+            got = model(toks, impl="kernel")
         launched, shape = LAUNCHES["flash_attention"], SHAPES[
             "flash_attention"]
-        want = model(toks, impl="ref")
+        with chip_smoke.recording_routes(want_routes):
+            want = model(toks, impl="ref")
     assert launched == cfg.n_layers and shape[-1] == Dh
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert got_routes and len(got_routes) == len(want_routes)
+    verdict = chip_smoke.routing_verdict(
+        chip_smoke.by_position(got_routes, 1),
+        chip_smoke.by_position(want_routes, 1), got, want,
+        cfg.moe.first_dense)
+    assert verdict["ok"], verdict
 
 
 # reduced VLM (4 groups of 4 self layers and a cross layer) and
@@ -1017,13 +1127,7 @@ def test_fast_storm_on_card_equals_cpu(cuda_device):
     """The storm of the placement service at its fast size with the
     engine on the card returns every simulated field and the placement
     log it returns with the engine on the CPU."""
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     got = chip_smoke.run_storm(chip_smoke.STORM_FAST, device="cuda")
     want = chip_smoke.run_storm(chip_smoke.STORM_FAST, device="cpu")
     for policy, res in got.items():

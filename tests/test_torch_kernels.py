@@ -248,6 +248,19 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_library_name_follows_the_shared_headers(monkeypatch, tmp_path):
+    """A source's library is named by a digest that also covers the
+    package's shared headers, so an edited header gets a new build."""
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    header = tmp_path / "sm_count.cuh"
+    header.write_text("// one\n")
+    first = _build._so_path("swap_gain")
+    assert _build._so_path("swap_gain") == first
+    header.write_text("// two\n")
+    assert _build._so_path("swap_gain") != first
+    assert _build.INCLUDE_FLAGS[0] == "-I"
+
+
 def test_count_launch_keeps_largest_shape():
     from repro_torch.kernels import SHAPES, count_launch
     reset_launches()

@@ -1,7 +1,7 @@
 """Build variants of a CUDA kernel source and compare them on the card.
 
     python3 tools/ssd_scan_variants.py
-        [--kernel ssd_scan|flash_attention|hop_dist] [SOURCE.cu ...]
+        [--kernel ssd_scan|flash_attention|hop_dist|swap_gain] [SOURCE.cu ...]
 
 Each source (by default the package's own source of the kernel; every
 variant exports the kernel's C entry points) is compiled alone with the
@@ -26,6 +26,16 @@ and spill report are printed.  Then every variant runs the same inputs:
   timed as ``chip_smoke.py`` times a kernel (``cuda_ms``: calls queued
   behind a spin kernel, so the host's launch cost stays out), and each
   output is also compared with the plain version's.
+* ``swap_gain``: the gains row (``swap_gain_f32`` / ``swap_gain_f64``) on
+  integer-valued inputs, mover n // 3, float32 and float64, at the dense
+  guest's (1024, 1024), the largest dense guest's (4096, 4096), ragged n
+  (1, 33, 1023, 1025) and (1024, 1024) as a view one value past a 16-byte
+  boundary; timed L2-hot as ``hop_dist`` is, and at (1024, 1024) also
+  L2-cold (``chip_smoke.cold_ms``: a 128 MB write before each call, the
+  events around the call alone).  Each line carries the launch floor
+  (``torch.cuda._sleep(0)`` timed the same way, hot and, for the cold
+  cases, cold) and the byte bound, and whether the output equals the plain
+  version's bit for bit.
 
 Device times are CUDA events around 20 calls, median of 5, taken in the
 order first, ..., last, last, ..., first; each variant's figure is the
@@ -50,7 +60,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
-from chip_smoke import cuda_ms  # noqa: E402
+from chip_smoke import HBM_BYTES_PER_S, cold_ms, cuda_ms  # noqa: E402
 
 CASES = {
     # (B, H, G, S, P, N, chunk, dtype)
@@ -69,6 +79,13 @@ CASES = {
                  for name in ("torus_hop", "fattree_hop")
                  for shape in ((2, 512, 512), (1, 4, 4), (1, 8, 8),
                                (2, 1024, 1024), (16, 1024, 1024))],
+    # (n, L2 cold, offset in values, dtype)
+    "swap_gain": [(n, cold, off, dt)
+                  for dt in ("float32", "float64")
+                  for n, cold, off in ((1024, False, 0), (1024, True, 0),
+                                       (4096, False, 0), (1, False, 0),
+                                       (33, False, 0), (1023, False, 0),
+                                       (1025, False, 0), (1024, False, 1))],
 }
 HOP_TORUS = (32, 32, 16)
 HOP_FATTREE = (32, 16, 16)     # (pod, edge, host) extents of k 32
@@ -79,8 +96,9 @@ def build(src: Path, out_dir: Path, tag: str, kernel: str):
     from repro_torch.kernels import _build
     out = out_dir / f"{tag}.so"
     t0 = time.perf_counter()
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                           str(src)], capture_output=True, text=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                           *_build.INCLUDE_FLAGS, "-o", str(out), str(src)],
+                          capture_output=True, text=True)
     wall = time.perf_counter() - t0
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
@@ -96,6 +114,12 @@ def build(src: Path, out_dir: Path, tag: str, kernel: str):
     lib = ctypes.CDLL(str(out))
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
+    if kernel == "swap_gain":
+        for dt in ("f32", "f64"):
+            fn = getattr(lib, f"swap_gain_{dt}")
+            fn.argtypes = [_P] * 5 + [_I64, _P]
+            fn.restype = ctypes.c_int
+        return lib
     if kernel == "hop_dist":
         for dt in ("f32", "f64"):
             fn = getattr(lib, f"torus_hop_{dt}")
@@ -134,6 +158,20 @@ def inputs(kernel: str, case):
     g = torch.Generator(device="cuda").manual_seed(1)
     rand = lambda *s: torch.randn(s, generator=g, device="cuda")
     tdt = getattr(torch, case[-1])
+    if kernel == "swap_gain":
+        import numpy as np
+        n, _, off, _ = case
+        rng = np.random.default_rng(0)
+        A = rng.integers(0, 7, (n, n))
+        S = rng.integers(0, 5, (n, n)) * (rng.random((n, n)) < 0.3)
+
+        def placed(a):          # a view ``off`` values into its storage
+            buf = torch.empty(n * n + off, dtype=tdt, device="cuda")
+            view = buf[off:].view(n, n)
+            view.copy_(torch.tensor(a, dtype=tdt))
+            return view
+        M, G = placed(A + A.T), placed(S + S.T)
+        return M, G, (G * M).sum(-1), torch.tensor([n // 3], device="cuda")
     if kernel == "hop_dist":
         import numpy as np
         name, B, m, k, _ = case
@@ -159,7 +197,14 @@ def caller(lib, kernel: str, case, data):
     import torch
     stream = lambda: torch.cuda.current_stream().cuda_stream
     f32 = case[-1] == "float32"
-    if kernel == "hop_dist":
+    if kernel == "swap_gain":
+        M, G, contrib, iv = data
+        o = torch.empty(case[0], dtype=M.dtype, device="cuda")
+        fn = lib.swap_gain_f32 if f32 else lib.swap_gain_f64
+        args = lambda: (M.data_ptr(), G.data_ptr(), contrib.data_ptr(),
+                        iv.data_ptr(), o.data_ptr(), case[0], stream())
+        outs = (o,)
+    elif kernel == "hop_dist":
         name, B, m, k, _ = case
         cu, cv = data
         o = torch.empty((B, m, k), dtype=cu.dtype, device="cuda")
@@ -208,6 +253,10 @@ def plain(kernel: str, case, data):
     """The plain version's outputs, where the comparison is exact."""
     from repro_torch.kernels.hop_dist.ref import (fattree_hop_pairs_ref,
                                                   torus_hop_pairs_ref)
+    from repro_torch.kernels.swap_gain.ref import swap_gain_ref
+    if kernel == "swap_gain":
+        M, G, contrib, iv = data
+        return (swap_gain_ref(M[None], G, contrib[None], iv)[0],)
     if kernel != "hop_dist":
         return None
     if case[0] == "torus_hop":
@@ -251,15 +300,31 @@ def main(argv=None) -> int:
     libs = [build(src, out_dir, f"v{i}", args.kernel)
             for i, src in enumerate(sources)]
     order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    # microsecond launches: the empty launch's time, and each case's bound
+    floor = (cuda_ms(lambda: torch.cuda._sleep(0))[0]
+             if args.kernel in ("hop_dist", "swap_gain") else None)
+    cold_floor = (cold_ms(lambda: torch.cuda._sleep(0))[0]
+                  if args.kernel == "swap_gain" else None)
     for case in CASES[args.kernel]:
         data = inputs(args.kernel, case)
         runs = [caller(lib, args.kernel, case, data) for lib in libs]
         times = {i: [] for i in range(len(libs))}
+        cold = args.kernel == "swap_gain" and case[1]
         for i in order:
             # launches of microseconds: time the card alone, as chip_smoke
-            times[i].append(cuda_ms(runs[i][0])[0]
-                            if args.kernel == "hop_dist"
+            times[i].append(cold_ms(runs[i][0])[0] if cold
+                            else cuda_ms(runs[i][0])[0]
+                            if floor is not None
                             else device_ms(runs[i][0]))
+        extra = {}
+        if floor is not None:
+            extra["launch_floor_ms"] = floor
+        if cold:
+            extra["launch_floor_cold_ms"] = cold_floor
+        if args.kernel == "swap_gain":
+            n, size = case[0], data[0].element_size()
+            extra["bound_ms"] = ((2 * n * n + 2 * n) * size + 8) \
+                / HBM_BYTES_PER_S * 1e3
         ref = runs[0][1]
         want = plain(args.kernel, case, data)
         for i, (_, outs) in enumerate(runs):
@@ -271,7 +336,7 @@ def main(argv=None) -> int:
                               "ms": statistics.mean(times[i]),
                               "ms_each": times[i],
                               "max_abs_diff_vs_v0": diff,
-                              "bit_equal_to_v0": equal,
+                              "bit_equal_to_v0": equal, **extra,
                               **({} if want is None else {
                                   "bit_equal_to_plain": all(
                                       bool(torch.equal(a, b))
