@@ -147,6 +147,21 @@ toolkit.  The script
    profiled for the device's idle share and the backward kernels' share
    (the kernels alone, and each ``_backward`` between CUDA events, the
    ``ssd_scan`` states' recompute in it);
+7f. runs the sharding layer at world size 1 (the ``parallel`` phase):
+   an nccl group of its own and a 1 x 1 DeviceMesh on the card;
+   smollm-135m at full width, B 2 x 2048, two sharded steps (DTensor
+   parameters, each block checkpointed, the flash kernels through
+   ``local_map``: 120 forward and 60 backward launches) held to two
+   unsharded steps bit for bit (or by ``train_agrees``), each step's wall
+   and the host ms DTensor adds; ``moe_ffn_ep`` and ``moe_ffn_a2a`` on
+   deepseek-v2-lite-16b's MoE layer (B 1 x 2048) held to ``moe_ffn_local``
+   by ``routing_verdict``; 8 ``flash_decode_gqa`` steps of smollm held to
+   the plain decode within 1e-5; then the torus-16^3 npb_dt-1024 tofa
+   placement through a backend of devices ``["cuda:0", "cuda:0"]`` (the
+   sharded ``refine_many``) held to the one-device placement and
+   ``EXPECTED``, and a sharded refine of an all-to-all guest on the
+   implicit 8^3 torus (``swap_select``, ``torus_hop``) bit-equal to the
+   one-device dispatch; every line with the card's name and power limit;
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -172,7 +187,7 @@ toolkit.  The script
    the reference's hop-bytes (``EXPECTED_FABRIC``), whose all-to-all
    guest must launch ``swap_select``.
 
-Steps 5 to 7e run between steps 2 and 3; ``ssd_scan`` and the new shapes
+Steps 5 to 7f run between steps 2 and 3; ``ssd_scan`` and the new shapes
 of steps 6a to 7c are checked with the other model kernels in step 5.  Each phase
 prints one JSON line.  Then come the kernel summary line, the card's name
 and power limit, and, only when every phase passed, the final
@@ -3436,6 +3451,269 @@ TRAIN_PHASES = (
         "S4096")))
 
 
+# ----------------------------------------------------------------- parallel
+# The sharding layer (repro_torch.parallel.sharding) at world size 1: an
+# nccl group of this process alone and a 1 x 1 (data x model) DeviceMesh
+# on the card.  parallel/train: smollm-135m at full width, B 2 x 2048, two
+# sharded steps (DTensor parameters, each block under activation
+# checkpointing, the flash kernels through local_map) against two steps
+# of the unsharded model on the same weights and batches.
+PARALLEL_TRAIN_B, PARALLEL_TRAIN_S, PARALLEL_TRAIN_STEPS = 2, 2048, 2
+PARALLEL_DECODE = (2, 2048, 8)          # B, cache length, decode steps
+PARALLEL_REFINE = "place/torus-16x16x16/npb_dt-1024/healthy"
+CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    if not CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        CARD.append(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                    else "nvidia-smi: no output")
+    return CARD[0]
+
+
+def parallel_train_cell(dev, mesh) -> None:
+    """parallel/train/smollm-135m: the sharded steps held to the unsharded
+    ones bit for bit, or by ``train_agrees`` (rtol 1e-4) where DTensor
+    reorders a sum (``bit_equal`` says which); each step's wall, the host
+    ms the DTensor step adds to the warm step, and the flash forward and
+    backward launches under the mesh (one forward and its recompute, and
+    one backward, a layer and step)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import reset_launches
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_arch("smollm-135m")
+    B, S, steps = PARALLEL_TRAIN_B, PARALLEL_TRAIN_S, PARALLEL_TRAIN_STEPS
+    ds = SyntheticDataset(cfg.vocab, S, B, seed=0)
+    batches = [ds.batch(i) for i in range(steps)]
+    opt = AdamW(**TRAIN_OPT)
+    model = M.init(cfg, seed=0, device=dev)
+    _, plain, plain_s = timed_steps(make_train_step(cfg, opt), model,
+                                    opt.init(model), batches)
+    del model
+    ctx = ShardingCtx(mesh=mesh)
+    model = ctx.distribute(M.init(cfg, seed=0, device=dev))
+    reset_launches()
+    torch.cuda.synchronize()
+    _, sharded, sharded_s = timed_steps(make_train_step(cfg, opt, ctx),
+                                        model, opt.init(model), batches)
+    launches = _count_path(("flash_attention", "flash_attention_bwd"))
+    del model
+    got = [[float(m["loss"]), float(m["grad_norm"])] for m in sharded]
+    want = [[float(m["loss"]), float(m["grad_norm"])] for m in plain]
+    want_launches = {"flash_attention": 2 * cfg.n_layers * steps,
+                     "flash_attention_bwd": cfg.n_layers * steps}
+    bit_equal = got == want
+    rec = {"phase": "parallel/train/smollm-135m", "card": card(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "batch": B, "seq": S, "steps": got, "plain_steps": want,
+           "bit_equal": bit_equal,
+           "sharded_step_ms": [s * 1e3 for s in sharded_s],
+           "unsharded_step_ms": [s * 1e3 for s in plain_s],
+           "dtensor_host_ms": (sharded_s[-1] - plain_s[-1]) * 1e3,
+           "launches": launches, "launches_expected": want_launches}
+    rec["ok"] = ((bit_equal or train_agrees(got, want, [0.0] * steps))
+                 and launches == want_launches)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("the sharded steps are not the unsharded ones")
+
+
+def parallel_moe_cell(dev, mesh) -> None:
+    """parallel/moe/deepseek-v2-lite-16b: ``moe_ffn_ep`` and
+    ``moe_ffn_a2a`` called on the model axis's process group (one rank:
+    every expert is its own; the a2a capacity drops nothing) on the MoE
+    layer of deepseek-v2-lite-16b cut to 2 layers at full width, B 1 x
+    2048 seeded activations, each held to ``moe_ffn_local`` by
+    ``routing_verdict``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_ffn_a2a, moe_ffn_ep, moe_ffn_local
+
+    cfg = dataclasses.replace(get_arch("deepseek-v2-lite-16b"), n_layers=2)
+    layer = M.init(cfg, seed=0, device=dev).blocks[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, 2048, cfg.d_model), generator=g, device=dev)
+    group = mesh.get_group("model")
+    rec = {"phase": "parallel/moe/deepseek-v2-lite-16b", "card": card()}
+    ok = True
+    with torch.no_grad():
+        runs = {}
+        for name, body in (("local", lambda: moe_ffn_local(layer, x, cfg)),
+                           ("ep", lambda: moe_ffn_ep(layer, x, cfg, group)),
+                           ("a2a", lambda: moe_ffn_a2a(layer, x, cfg,
+                                                       group))):
+            calls = []
+            with recording_routes(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = body()
+                torch.cuda.synchronize()
+            runs[name] = (out, by_position(calls, 1))
+            rec[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        want, want_routes = runs["local"]
+        for name in ("ep", "a2a"):
+            got, routes = runs[name]
+            v = routing_verdict(routes, want_routes, got, want, 0)
+            v["max_abs_err"] = float((got - want).abs().max())
+            rec[name] = v
+            ok &= v["ok"]
+    del layer
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        raise AssertionError("a parallel MoE body is not the local one")
+
+
+def parallel_decode_cell(dev, mesh) -> None:
+    """parallel/decode/smollm-135m: ``decode_step`` with ``flash_decode``
+    on the mesh (the cache placed by the context, each step's attention by
+    ``flash_decode_gqa``) against the plain decode, full width, B 2, cache
+    2048, 8 steps from seeded tokens, each step's logits within 1e-5."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.parallel.sharding import ShardingCtx
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    cfg = get_arch("smollm-135m")
+    B, S, steps = PARALLEL_DECODE
+    ctx = ShardingCtx(mesh=mesh, flash_decode=True)
+    plain = M.init(cfg, seed=0, device=dev)
+    sharded = ctx.distribute(M.init(cfg, seed=0, device=dev))
+    caches = init_cache(cfg, B, S, device=dev)
+    sharded_caches = init_cache(cfg, B, S, device=dev, ctx=ctx)
+    g = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=g, device=dev)
+    errs, ms, plain_ms = [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want, caches = decode_step(plain, caches, toks[:, i:i + 1], i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got, sharded_caches = decode_step(sharded, sharded_caches,
+                                          toks[:, i:i + 1], i, ctx=ctx)
+        got = got.full_tensor()
+        torch.cuda.synchronize()
+        plain_ms.append((t1 - t0) * 1e3)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        errs.append(float((got - want).abs().max()))
+    del plain, sharded, caches, sharded_caches
+    rec = {"phase": "parallel/decode/smollm-135m", "card": card(),
+           "batch": B, "cache": S, "max_abs_err": errs,
+           "flash_decode_ms": ms, "plain_decode_ms": plain_ms,
+           "ok": all(math.isfinite(e) and e <= 1e-5 for e in errs)}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("flash decode is not the plain decode")
+
+
+def parallel_refine_cell() -> None:
+    """parallel/refine: the tofa placement of ``PARALLEL_REFINE`` through
+    a ``TorchBackend`` whose devices are ``["cuda:0", "cuda:0"]`` (the
+    candidate stack split in two and refined side by side) against the
+    one-device backend, each on a fresh engine: the same placement, the
+    reference's hop-bytes, ``sharded_dispatches`` > 0; then one sharded
+    ``refine_many`` of 4 candidates of a 64-rank all-to-all guest on the
+    implicit 8x8x8 torus, bit-equal to the one-device dispatch, which
+    launches ``swap_select`` and ``torus_hop``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import backend, mapping_torch
+    from repro_torch.core.engine import PlacementEngine, PlacementRequest
+    from repro_torch.core.topology import TorusTopology
+    from repro_torch.kernels import reset_launches
+    from repro_torch.workloads.patterns import alltoall_heavy, npb_dt_like
+
+    request = PlacementRequest(comm=npb_dt_like(1024, seed=3).comm,
+                               topology=TorusTopology((16, 16, 16)))
+    one = backend.TorchBackend(device="cuda")
+    two = backend.TorchBackend(device="cuda", devices=["cuda:0"] * 2)
+    rec = {"phase": "parallel/refine", "card": card(),
+           "request": PARALLEL_REFINE}
+    plans = {}
+    for name, be in (("one", one), ("two", two)):
+        with backend.use(be):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plans[name] = PlacementEngine(backend=None).place(
+                request, policy="tofa", rng=np.random.default_rng(0))
+            torch.cuda.synchronize()
+            rec[f"{name}_device_s"] = time.perf_counter() - t0
+    rec["hop_bytes"] = plans["two"].hop_bytes
+    rec["sharded_dispatches"] = two.stats.get("sharded_dispatches", 0)
+    same = np.array_equal(plans["one"].placement, plans["two"].placement)
+    ok = (same and rec["sharded_dispatches"] > 0
+          and plans["one"].hop_bytes == plans["two"].hop_bytes
+          == EXPECTED[PARALLEL_REFINE])
+
+    G = alltoall_heavy(64).comm.G_v
+    torus = TorusTopology((8, 8, 8))
+    D = torus.lazy_distance()
+    rng = np.random.default_rng(0)
+    P = np.stack([rng.permutation(torus.n_nodes)[:64] for _ in range(4)])
+    with backend.use(one):
+        single = mapping_torch.refine_many(G, D, P)
+    before = two.stats["sharded_dispatches"]
+    reset_launches()
+    with backend.use(two):
+        sharded = mapping_torch.refine_many(G, D, P)
+        torch.cuda.synchronize()
+    launches = _count_path(("swap_select", "torus_hop"))
+    rec.update({"same_placement": same, "refine_launches": launches,
+                "refine_bit_equal": bool(np.array_equal(single, sharded))})
+    ok &= (rec["refine_bit_equal"] and two.stats["sharded_dispatches"]
+           == before + 1 and all(n > 0 for n in launches.values()))
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("the sharded refine is not the one-device one")
+
+
+def parallel_phase(dev) -> None:
+    """The parallel cells on an nccl group of its own (a file rendezvous
+    under ``build/``), destroyed at the end, then the sharded refine."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.parallel.sharding import make_mesh
+
+    store = ROOT / "build" / "chip_smoke_rendezvous"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh("cuda", (1, 1))
+        for cell in (parallel_train_cell, parallel_moe_cell,
+                     parallel_decode_cell):
+            t0 = time.perf_counter()
+            cell(dev, mesh)
+            emit({"phase": f"{cell.__name__}/done",
+                  "s": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    parallel_refine_cell()
+    emit({"phase": "parallel_refine_cell/done",
+          "s": time.perf_counter() - t0})
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     try:
@@ -3554,6 +3832,14 @@ def main() -> int:
             failed.append(f"train/{name}")
         torch.cuda.empty_cache()
         emit({"phase": f"train/{name}/done", "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    try:
+        parallel_phase(dev)
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("parallel")
+    torch.cuda.empty_cache()
+    emit({"phase": "parallel/done", "s": time.perf_counter() - t0})
     for run in placement_phases():
         try:
             run()

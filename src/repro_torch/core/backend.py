@@ -39,6 +39,7 @@ backend, never floats.
 from __future__ import annotations
 
 import contextlib
+import os
 from collections import OrderedDict
 from typing import Iterator, Optional
 
@@ -84,19 +85,27 @@ class TorchBackend:
     device string such as ``"cuda:1"``, or ``"cpu"`` when the caller asks
     for the plain PyTorch versions).  ``dtype`` selects the compute
     precision (placement ids stay integers regardless).
+
+    ``devices`` are the devices a batched refine shards its candidate
+    stack over (:func:`~repro_torch.core.mapping_torch.refine_many`): by
+    default every visible CUDA device for a CUDA backend, capped by
+    ``REPRO_TORCH_DEVICES`` (0 or unset: all), and ``[device]`` for a CPU
+    one; a list such as ``["cpu"] * 4`` sets them.
     """
 
     name = "torch"
     is_torch = True
 
     def __init__(self, dtype: str = "float64", device: str = "cuda",
-                 max_cached_devices: int = 8):
+                 max_cached_devices: int = 8, devices=None):
         if dtype not in ("float32", "float64"):
             raise ValueError(f"torch backend dtype must be float32|float64, "
                              f"got {dtype!r}")
         dev = resolve_device(device)
         self.dtype = dtype
         self.device = dev
+        self.devices = ([resolve_device(d) for d in devices]
+                        if devices is not None else _default_devices(dev))
         # host ndarray -> device tensor, LRU by object identity.  The
         # engine hands the same cached D / Eq. 1 weight matrix object to
         # every placement against one (topology, health) state, so
@@ -120,9 +129,9 @@ class TorchBackend:
     def torch_dtype(self) -> torch.dtype:
         return torch.float32 if self.dtype == "float32" else torch.float64
 
-    def device_matrix(self, arr: np.ndarray) -> torch.Tensor:
+    def device_matrix(self, arr: np.ndarray, device=None) -> torch.Tensor:
         """Device-resident copy of a host matrix in the compute dtype,
-        cached by identity.
+        cached by identity, on ``device`` (by default the backend's).
 
         The host array is kept referenced so ``id()`` cannot be recycled
         while the cache entry lives.
@@ -138,7 +147,8 @@ class TorchBackend:
                 "refusing to densify a LazyDistance onto device; use its "
                 ".implicit coordinate spec (see "
                 "mapping_torch._device_distances)")
-        key = (id(arr), self.dtype)
+        device = self.device if device is None else torch.device(device)
+        key = (id(arr), self.dtype, str(device))
         hit = self._device.get(key)
         if hit is not None:
             self.stats["transfer_hits"] += 1
@@ -146,7 +156,7 @@ class TorchBackend:
             return hit[1]
         self.stats["transfers"] += 1
         dev = torch.as_tensor(np.asarray(arr, dtype=self.np_dtype)).to(
-            self.device)
+            device)
         self._device[key] = (arr, dev)
         while len(self._device) > self._max_cached:
             self._device.popitem(last=False)
@@ -154,6 +164,19 @@ class TorchBackend:
 
     def clear_device_cache(self) -> None:
         self._device.clear()
+
+
+def _default_devices(device: torch.device) -> list:
+    """Every visible CUDA device for a CUDA ``device``, the first
+    ``REPRO_TORCH_DEVICES`` of them when that is set above 0; ``[device]``
+    otherwise."""
+    if device.type != "cuda":
+        return [device]
+    n = torch.cuda.device_count()
+    cap = int(os.environ.get("REPRO_TORCH_DEVICES", "0") or 0)
+    if cap > 0:
+        n = min(n, cap)
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 _NUMPY = NumpyBackend()

@@ -40,6 +40,7 @@ from __future__ import annotations
 import functools
 import time
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -181,11 +182,12 @@ def _pad_placements(placements: np.ndarray) -> tuple[np.ndarray, int, int]:
     return P, n, n_pad
 
 
-def _guest_device(G_w: np.ndarray, n_pad: int, be):
-    """Device-resident guest structure (idx, val, G_dense),
-    cached by guest identity so repeated refine/score calls against one
-    job's graph pay a single transfer.  ``G_dense`` is None on the sparse
-    branch."""
+def _guest_device(G_w: np.ndarray, n_pad: int, be, device=None):
+    """Device-resident guest structure (idx, val, G_dense) on ``device``
+    (by default the backend's), cached by guest identity so repeated
+    refine/score calls against one job's graph pay a single transfer.
+    ``G_dense`` is None on the sparse branch."""
+    dev = be.device if device is None else device
     def build():
         idx, val, k, G = _sparse_rows(G_w)
         n = idx.shape[0]
@@ -196,13 +198,13 @@ def _guest_device(G_w: np.ndarray, n_pad: int, be):
         if k > max(8, n_pad // 2):                     # the dense branch
             Gd = G if n_pad == n else np.pad(G, ((0, n_pad - n),
                                                  (0, n_pad - n)))
-            G_dense = torch.as_tensor(Gd).to(be.device, be.torch_dtype)
-        return (torch.as_tensor(idx).to(be.device),
-                torch.as_tensor(val).to(be.device, be.torch_dtype),
+            G_dense = torch.as_tensor(Gd).to(dev, be.torch_dtype)
+        return (torch.as_tensor(idx).to(dev),
+                torch.as_tensor(val).to(dev, be.torch_dtype),
                 G_dense)
     key_holder = _sparse_rows(G_w)    # one entry per guest object
     cache = _SPARSE_DEV_CACHE.get(key_holder, dict)
-    sub = (n_pad, be.dtype, str(be.device))
+    sub = (n_pad, be.dtype, str(dev))
     if sub not in cache:
         cache[sub] = build()
     return cache[sub]
@@ -253,18 +255,19 @@ class _Dist:
         return self.elems(node[:, None], p)
 
 
-def _device_distances(D, be) -> _Dist:
+def _device_distances(D, be, device=None) -> _Dist:
     """The dense symmetrised matrix, or the implicit spec's coordinate
-    table (and fat-tree penalty vector) on the backend's device."""
+    table (and fat-tree penalty vector) on ``device`` (by default the
+    backend's)."""
     spec = getattr(D, "implicit", None)
     if spec is None:
-        return _Dist(be.device_matrix(_sym_host(D)))
+        return _Dist(be.device_matrix(_sym_host(D), device))
     if getattr(spec, "kind", "torus") == "fattree":
-        return _Dist(be.device_matrix(spec.coords), "fattree",
+        return _Dist(be.device_matrix(spec.coords, device), "fattree",
                      scale=float(spec.scale),
-                     penalty=be.device_matrix(spec.penalty))
-    return _Dist(be.device_matrix(spec.coords), "torus", dims=spec.dims,
-                 scale=float(spec.scale))
+                     penalty=be.device_matrix(spec.penalty, device))
+    return _Dist(be.device_matrix(spec.coords, device), "torus",
+                 dims=spec.dims, scale=float(spec.scale))
 
 
 # --------------------------------------------------------------------------
@@ -388,16 +391,39 @@ def refine_many(G_w: np.ndarray, D, placements: np.ndarray,
                 max_passes: int = 3, movers: int = 64,
                 extra_passes: int = 13) -> np.ndarray:
     """Batched ``_pairwise_refine``: (B, n) placements, one batched loop
-    on the backend's device."""
+    on the backend's device.
+
+    With several devices (``TorchBackend.devices``) the candidate stack is
+    sharded across them: B is padded to a multiple of the device count by
+    repeating the last candidate, each device refines its slice (one
+    thread each, so each slice's loop stops when its own candidates
+    converge), and the slices are gathered and the padding cut off.
+    Candidates never interact, so the result is the one-device one."""
     be = _be()
     P, n, n_pad = _pad_placements(np.atleast_2d(placements))
-    idx, val, G_dense = _guest_device(G_w, n_pad, be)
-    dist = _device_distances(D, be)
-    p = torch.tensor(P, device=be.device)     # a copy: refined in place
-    out = _refine(p, idx, val, G_dense, dist, n,
-                  movers=min(movers, n_pad),
-                  total_passes=max_passes + extra_passes)
-    out = out.cpu().numpy()[:, :n].astype(np.int64)
+    B = P.shape[0]
+    n_dev = min(len(be.devices), B)
+    devices = be.devices[:n_dev] if n_dev > 1 else [be.device]
+    if n_dev > 1:
+        P = np.pad(P, ((0, (-B) % len(devices)), (0, 0)), mode="edge")
+        be.stats["sharded_dispatches"] = (
+            be.stats.get("sharded_dispatches", 0) + 1)
+    # every transfer on this thread, before the slices run side by side
+    jobs = [(torch.tensor(part, device=dev),        # a copy: refined in place
+             *_guest_device(G_w, n_pad, be, dev),
+             _device_distances(D, be, dev))
+            for dev, part in zip(devices, np.split(P, len(devices)))]
+
+    def run(job):
+        return _refine(*job, n, movers=min(movers, n_pad),
+                       total_passes=max_passes + extra_passes).cpu()
+
+    if len(jobs) == 1:
+        outs = [run(jobs[0])]
+    else:
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            outs = list(pool.map(run, jobs))
+    out = torch.cat(outs).numpy()[:B, :n].astype(np.int64)
     return out if np.asarray(placements).ndim == 2 else out[0]
 
 

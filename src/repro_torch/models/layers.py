@@ -19,14 +19,17 @@ Conventions:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 
 # sequences at or above this length use the flash (online-softmax) attention
 # path: O(S * block) memory instead of the O(S^2) score matrix
@@ -117,10 +120,23 @@ def gqa_schema(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
+def _flash(q, k, v, impl: str, ctx: ShardingCtx):
+    """The causal flash attention of q (B, H, S, Dh) over k/v (B, Hkv,
+    S, Dh); under a mesh, on each rank's batch and heads (``local_map``:
+    heads are independent, so the kernel computes its heads exactly)."""
+    fn = functools.partial(flash_attention, causal=True, impl=impl)
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    spec = (ctx.batch_entry(q.shape[0]),
+            ctx.head_entry(q.shape[1], k.shape[1]))
+    return ctx.kernel_map(fn, (spec, spec, spec), spec, q, k, v)
+
+
 def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
                   cache: Optional[tuple] = None, cache_pos: int = 0,
                   causal: bool = True,
-                  kv_override: Optional[tuple] = None, impl: str = "auto"):
+                  kv_override: Optional[tuple] = None, impl: str = "auto",
+                  ctx: ShardingCtx = NULL_CTX):
     """Grouped-query attention; returns (out, new_cache).
 
     With ``cache`` — ``(k, v)``, each (B, Hkv, S_max, Dh) — the new keys
@@ -134,8 +150,16 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
     :func:`~repro_torch.kernels.flash_attention.ops.flash_attention`
     (``impl`` picks its kernel or plain version); every other call takes
     the plain softmax.
+
+    With a cache and ``ctx.flash_decode`` on a mesh with a ``"model"``
+    axis, decode runs :func:`flash_decode_gqa` over the sequence-sharded
+    cache (the reference's condition).
     """
     B, S, D = x.shape
+    if cache is not None and kv_override is None and ctx.flash_decode \
+            and "model" in ctx.shape:
+        return flash_decode_gqa(p, x, cache, cache_pos, n_heads=n_heads,
+                                cos=cos, sin=sin, ctx=ctx)
     q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
     if kv_override is None:
         k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
@@ -152,8 +176,8 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
     new_cache = None
     if cache is not None:
         ck, cv = cache
-        ck[:, :, cache_pos:cache_pos + S] = k.to(ck.dtype)
-        cv[:, :, cache_pos:cache_pos + S] = v.to(cv.dtype)
+        write_cache(ck, k, cache_pos, 2)
+        write_cache(cv, v, cache_pos, 2)
         k, v = ck, cv
         new_cache = (ck, cv)
         causal = False  # masking handled by length below
@@ -161,7 +185,7 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
     if cache is None and causal and kv_override is None \
             and S >= FLASH_MIN_SEQ:
         # long-context prefill/train: O(S*block) online-softmax attention
-        out = flash_attention(q, k, v, causal=True, impl=impl)
+        out = _flash(q, k, v, impl, ctx)
         return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
 
     groups = n_heads // max(k.shape[1], 1)
@@ -182,6 +206,98 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bhtk->bhsk", probs, v)
     return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+
+
+def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int,
+                dim: int) -> None:
+    """``cache[pos:pos + S]`` along ``dim`` = ``new`` (S rows), in place.
+
+    For a DTensor cache sharded along ``dim`` (``cache_seq`` on the model
+    axis), each rank writes the new rows that fall in its own slice, at
+    their local offset: DTensor's slice assignment on a sharded dim would
+    write each rank's shard at the global offset, the wrong rows."""
+    from torch.distributed.tensor import Replicate
+    S = new.shape[dim]
+    pl = list(cache.placements) if is_dtensor(cache) else []
+    sharded = [i for i, p in enumerate(pl) if p.is_shard(dim)]
+    if not sharded:
+        index = [slice(None)] * cache.ndim
+        index[dim] = slice(pos, pos + S)
+        cache[tuple(index)] = new.to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    rows = new.redistribute(mesh, [Replicate() if i in sharded else p
+                                   for i, p in enumerate(pl)]).to_local()
+    local = cache.to_local()
+    coord, shard, shards = mesh.get_coordinate(), 0, 1
+    for i in sharded:
+        shard, shards = shard * mesh.size(i) + coord[i], shards * mesh.size(i)
+    start = shard * -(-cache.shape[dim] // shards)   # torch.chunk's split
+    lo = max(pos, start)
+    hi = min(pos + S, start + local.shape[dim])
+    if lo < hi:
+        local.narrow(dim, lo - start, hi - lo).copy_(
+            rows.narrow(dim, lo - pos, hi - lo).to(local.dtype))
+
+
+def flash_decode_gqa(p, x: torch.Tensor, cache: tuple, cache_pos: int, *,
+                     n_heads: int, cos, sin, ctx: ShardingCtx):
+    """Decode attention over a KV cache sharded by sequence on the mesh's
+    ``"model"`` axis (flash-decoding); returns (out, cache).
+
+    Each rank computes a partial softmax over its slice of the cache,
+    with the query heads grouped onto their KV heads (no repeat of K/V),
+    and the combine is one max-reduction of the row maxima and two
+    sum-reductions of the rescaled numerators and denominators over the
+    model axis: O(B·H·Dh) bytes instead of gathering the cache.  The new
+    token's K/V is written, in place, only on the rank whose slice holds
+    ``cache_pos``.  ``cache`` is ``(k, v)``, each a DTensor (B, Hkv,
+    S_max, Dh) placed by ``("batch", "cache_heads", "cache_seq")``."""
+    from torch.distributed.tensor import DTensor
+    B, S1, D = x.shape
+    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+    k_new = torch.einsum("bsd,dhk->bhsk", x, p.wk)
+    v_new = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k_new = apply_rope(k_new, cos, sin)
+    ck, cv = cache
+    b = ctx.batch_entry(B)
+    q_pl = ctx.placements_of((b,))
+    kv_pl = ctx.placements_of((b, None, "model"))
+    if list(ck.placements) != kv_pl or list(cv.placements) != kv_pl:
+        raise ValueError(f"flash decode needs the cache placed as {kv_pl}, "
+                         f"got {ck.placements}")
+    write_cache(ck, k_new, cache_pos, 2)
+    write_cache(cv, v_new, cache_pos, 2)
+    q_ = q.redistribute(ctx.mesh, q_pl).to_local()
+    ck_, cv_ = ck.to_local(), cv.to_local()
+    group = ctx.group("model")
+    i = dist.get_rank(group)
+    S_loc = ck_.shape[2]
+    Bl, H, _, Dh = q_.shape
+    Hkv = ck_.shape[1]
+    groups = H // max(Hkv, 1)
+    # the q heads grouped onto their KV head: (B, Hkv, groups * S1, Dh)
+    qg = q_.reshape(Bl, Hkv, groups * S1, Dh)
+    s = torch.einsum("bhsk,bhtk->bhst", qg, ck_).float() / math.sqrt(Dh)
+    t = i * S_loc + torch.arange(S_loc, device=s.device)
+    s = torch.where(t <= cache_pos, s, -1e30)
+    m = s.amax(dim=-1)                                     # (B, Hkv, g*S1)
+    pr = torch.exp(s - m[..., None])
+    den = pr.sum(dim=-1)
+    num = torch.einsum("bhst,bhtk->bhsk", pr.to(cv_.dtype), cv_)
+    M = m.clone()
+    dist.all_reduce(M, dist.ReduceOp.MAX, group=group)
+    corr = torch.exp(m - M)
+    num = num * corr[..., None].to(num.dtype)
+    den = den * corr
+    dist.all_reduce(num, group=group)
+    dist.all_reduce(den, group=group)
+    out = num / torch.clamp(den, min=1e-30)[..., None].to(num.dtype)
+    out = out.reshape(Bl, H, S1, Dh).to(q_.dtype)
+    out = DTensor.from_local(out, ctx.mesh, q_pl, run_check=False)
+    return torch.einsum("bhsk,hkd->bsd", out, p.wo), (ck, cv)
 
 
 def cross_attention(p, x: torch.Tensor, k: torch.Tensor,
@@ -237,7 +353,8 @@ def mla_schema(cfg: ModelConfig, layers: int) -> dict:
 
 def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
                   cache: Optional[torch.Tensor] = None, cache_pos: int = 0,
-                  causal: bool = True, impl: str = "auto"):
+                  causal: bool = True, impl: str = "auto",
+                  ctx: ShardingCtx = NULL_CTX):
     """Multi-head latent attention; returns (out, new_cache).
 
     Scores are formed in the latent space (the *absorbed* form: ``q_nope
@@ -265,7 +382,7 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
                     dim=-1)
     new_cache = None
     if cache is not None:
-        cache[:, cache_pos:cache_pos + S] = ckv.to(cache.dtype)
+        write_cache(cache, ckv, cache_pos, 1)
         ckv = new_cache = cache
     c_lat, k_rope = ckv[..., :lora], ckv[..., lora:]
 
@@ -279,7 +396,7 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
         # pad V to the K head dim for the shared kernel, trim after
         pad = q_full.shape[-1] - v.shape[-1]
         v_p = F.pad(v, (0, pad)) if pad else v
-        out = flash_attention(q_full, k_full, v_p, causal=True, impl=impl)
+        out = _flash(q_full, k_full, v_p, impl, ctx)
         out = out[..., :mla.v_head_dim]
         return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
 

@@ -23,9 +23,16 @@ each followed by a :class:`CrossBlock` that attends to the vision
 embeddings) and the encoder-decoder family (seamless-m4t-large-v2: a
 stack of :class:`EncoderBlock` over the source frames, then one of
 :class:`DecoderBlock` with causal self-attention and cross-attention to
-the encoder's output).  The port is single-device: the reference's
-sharding context is not carried over, and a MoE layer runs all its
-experts on the one device (:func:`~repro_torch.models.moe.moe_ffn_local`).
+the encoder's output).
+
+``ctx`` (:class:`~repro_torch.parallel.sharding.ShardingCtx`) shards the
+model over a device mesh, as the reference's does: with a mesh, the
+parameters are DTensors (:meth:`ShardingCtx.distribute`), the activations
+are constrained at the reference's points, each block runs under
+activation checkpointing, the kernels run on each rank's heads through
+``local_map``, and a MoE layer dispatches to the expert-parallel bodies
+(:func:`~repro_torch.models.moe.moe_ffn`).  Without a mesh (``ctx=None``)
+every helper is a no-op and the path is the one-device one.
 """
 from __future__ import annotations
 
@@ -40,8 +47,9 @@ from repro_torch.models.layers import (ParamDef, cross_attention,
                                        gqa_attention, gqa_schema, init_,
                                        mla_attention, mla_schema, mlp,
                                        mlp_schema, rmsnorm, rope_freqs)
-from repro_torch.models.moe import moe_ffn_local, moe_schema
+from repro_torch.models.moe import moe_ffn, moe_schema
 from repro_torch.models.ssm import mamba2_block, mamba2_schema
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
@@ -236,20 +244,22 @@ class DenseBlock(Leaves):
                 self.register_parameter(name, None)
 
     def forward(self, h, cfg: ModelConfig, cos, sin, *, cache=None,
-                pos: int = 0, causal: bool = True, impl: str = "auto"):
+                pos: int = 0, causal: bool = True, impl: str = "auto",
+                ctx: ShardingCtx = NULL_CTX):
         x = rmsnorm(h, self.ln1)
         if cfg.attn_type == "mla":
             a, kc = mla_attention(self, x, cos, sin, mla=cfg.mla,
                                   cache=cache, cache_pos=pos, causal=causal,
-                                  impl=impl)
+                                  impl=impl, ctx=ctx)
         else:
             a, kc = gqa_attention(self, x, cos, sin, n_heads=cfg.n_heads,
                                   cache=cache, cache_pos=pos, causal=causal,
-                                  impl=impl)
+                                  impl=impl, ctx=ctx)
         h = h + a
         x = rmsnorm(h, self.ln2)
         h = h + (mlp(self, x, cfg.act) if self.router is None
-                 else moe_ffn_local(self, x, cfg))
+                 else moe_ffn(self, x, cfg, ctx))
+        h = ctx.constrain(h, "batch", "seq", "act_embed")
         return h, kc
 
 
@@ -259,8 +269,9 @@ class EncoderBlock(DenseBlock):
     positions, then the MLP, each pre-norm with a residual.  Being
     non-causal, it never takes the flash branch."""
 
-    def forward(self, h, cfg: ModelConfig, cos, sin):
-        return super().forward(h, cfg, cos, sin, causal=False)[0]
+    def forward(self, h, cfg: ModelConfig, cos, sin, *,
+                ctx: ShardingCtx = NULL_CTX):
+        return super().forward(h, cfg, cos, sin, causal=False, ctx=ctx)[0]
 
 
 class CrossBlock(DenseBlock):
@@ -299,11 +310,11 @@ class DecoderBlock(Leaves):
 
     def forward(self, h, cfg: ModelConfig, cos, sin, enc=None, *,
                 cache=None, pos: int = 0, cross_kv=None,
-                impl: str = "auto"):
+                impl: str = "auto", ctx: ShardingCtx = NULL_CTX):
         # the reference's names: ``self`` is this layer's self-attention
         a, kc = gqa_attention(self.self, rmsnorm(h, self.ln1), cos, sin,
                               n_heads=cfg.n_heads, cache=cache,
-                              cache_pos=pos, impl=impl)
+                              cache_pos=pos, impl=impl, ctx=ctx)
         h = h + a
         x = rmsnorm(h, self.ln2)
         if cross_kv is None:
@@ -324,10 +335,11 @@ class MambaBlock(Leaves):
     ``d_skip``, ``norm_w``, ``out_proj``, ``ln1``)."""
 
     def forward(self, h, cfg: ModelConfig, *, conv_state=None,
-                ssm_state=None, impl: str = "auto"):
+                ssm_state=None, impl: str = "auto",
+                ctx: ShardingCtx = NULL_CTX):
         o, caches = mamba2_block(self, rmsnorm(h, self.ln1), cfg,
                                  conv_state=conv_state, ssm_state=ssm_state,
-                                 impl=impl)
+                                 impl=impl, ctx=ctx)
         return h + o, caches
 
 
@@ -394,13 +406,24 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.tok_emb.device
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok_emb[tokens.to(self.device)]
+    def embed(self, tokens: torch.Tensor,
+              ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+        if not is_dtensor(self.tok_emb):
+            return self.tok_emb[tokens.to(self.device)]
+        # DTensor's rule for the lookup's backward (aten.index_put with a
+        # batch-sharded index) fails in some torch releases (a Shard(-1)
+        # it does not normalise): each rank looks its own tokens up in the
+        # gathered table, whose gradient is then partial over the batch
+        spec = (ctx.batch_entry(tokens.shape[0]),)
+        return ctx.kernel_map(lambda w, t: w[t], ((), spec), spec,
+                              self.tok_emb, tokens,
+                              partial=(ctx.spec_axes(spec), ()))
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
+    def logits(self, h: torch.Tensor,
+               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
         h = rmsnorm(h, self.final_norm)
         unembed = self.tok_emb if self.unembed is None else self.unembed
-        return h @ unembed.T
+        return ctx.constrain(h @ unembed.T, "batch", "seq", "vocab")
 
     def source(self, src: Optional[torch.Tensor], name: str
                ) -> torch.Tensor:
@@ -411,21 +434,24 @@ class Transformer(nn.Module):
                              f"forward needs {name} (B, S_src, d_model)")
         return src.to(self.device, self.tok_emb.dtype)
 
-    def encode(self, enc_embed: torch.Tensor) -> torch.Tensor:
+    def encode(self, enc_embed: torch.Tensor,
+               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
         """An encoder-decoder model's encoder stack over the source frames
         ``enc_embed`` (B, S_src, d_model), rotated at positions 0 ..
         S_src − 1, then ``enc_norm``: the K/V source of every decoder
         layer's cross-attention."""
-        enc = self.source(enc_embed, "enc_embed")
+        enc = ctx.place(self.source(enc_embed, "enc_embed"),
+                        ("batch", "seq", "act_embed"))
         cos, sin = _rope(self.cfg, enc.shape[1], device=self.device)
         for blk in self.encoder:
-            enc = blk(enc, self.cfg, cos, sin)
+            enc = ctx.call_block(blk, enc, self.cfg, cos, sin, ctx=ctx)
         return rmsnorm(enc, self.enc_norm)
 
     def forward(self, tokens: torch.Tensor, *,
                 vision_embed: Optional[torch.Tensor] = None,
                 enc_embed: Optional[torch.Tensor] = None,
-                impl: str = "auto") -> torch.Tensor:
+                impl: str = "auto",
+                ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
         """Token logits (B, S, vocab) for train/prefill from tokens (B, S),
         and for a VLM the vision embeddings ``vision_embed`` (B, Nv,
         d_model), for an encoder-decoder model the source frames
@@ -436,40 +462,55 @@ class Transformer(nn.Module):
         tokens or more runs through (never cross-attention or the
         encoder's), and every mamba2 layer's ``ssd_scan``.  Under grad
         on a GPU both go through their ``autograd.Function``: the
-        forward kernel, then the backward kernels in the backward."""
+        forward kernel, then the backward kernels in the backward.
+
+        With a mesh in ``ctx`` (the parameters distributed by it), the
+        inputs, the same on every rank, are placed by ``"batch"``, each
+        block runs under ``ctx.call_block`` and the logits come back as a
+        DTensor constrained to ``("batch", "seq", "vocab")``; plain
+        tensors inside (rope tables, masks) act as replicated."""
+        ctx = ctx or NULL_CTX
+        with ctx.scope():
+            return self._forward(tokens, vision_embed, enc_embed, impl, ctx)
+
+    def _forward(self, tokens, vision_embed, enc_embed, impl: str,
+                 ctx: ShardingCtx) -> torch.Tensor:
         B, S = tokens.shape
         cfg = self.cfg
-        h = self.embed(tokens)
+        run = ctx.call_block
+        h = self.embed(ctx.place(tokens, ("batch", "seq")), ctx)
+        h = ctx.constrain(h, "batch", "seq", "act_embed")
         if cfg.family == "ssm":
             for blk in self.blocks:
-                h, _ = blk(h, cfg, impl=impl)
-            return self.logits(h)
+                h, _ = run(blk, h, cfg, impl=impl, ctx=ctx)
+            return self.logits(h, ctx)
         cos, sin = _rope(cfg, S, device=self.device)
         if cfg.family == "hybrid":
             G, k, _ = _hybrid_split(cfg)
             for g in range(G):
                 for blk in self.blocks[g * k:(g + 1) * k]:
-                    h, _ = blk(h, cfg, impl=impl)
-                h, _ = self.shared(h, cfg, cos, sin, impl=impl)
+                    h, _ = run(blk, h, cfg, impl=impl, ctx=ctx)
+                h, _ = run(self.shared, h, cfg, cos, sin, impl=impl, ctx=ctx)
             for blk in self.trailing:
-                h, _ = blk(h, cfg, impl=impl)
-            return self.logits(h)
+                h, _ = run(blk, h, cfg, impl=impl, ctx=ctx)
+            return self.logits(h, ctx)
         if cfg.family == "vlm":
             G, k = _vlm_split(cfg)
-            vis = self.source(vision_embed, "vision_embed")
+            vis = ctx.place(self.source(vision_embed, "vision_embed"),
+                            ("batch", "vis_seq", "act_embed"))
             for g in range(G):
                 for blk in self.blocks[g * k:(g + 1) * k]:
-                    h, _ = blk(h, cfg, cos, sin, impl=impl)
-                h = self.cross[g](h, cfg, vis)
-            return self.logits(h)
+                    h, _ = run(blk, h, cfg, cos, sin, impl=impl, ctx=ctx)
+                h = run(self.cross[g], h, cfg, vis)
+            return self.logits(h, ctx)
         if cfg.family == "encdec":
-            enc = self.encode(enc_embed)
+            enc = self.encode(enc_embed, ctx)
             for blk in self.decoder:
-                h, _ = blk(h, cfg, cos, sin, enc, impl=impl)
-            return self.logits(h)
+                h, _ = run(blk, h, cfg, cos, sin, enc, impl=impl, ctx=ctx)
+            return self.logits(h, ctx)
         for blk in (*self.dense0, *self.blocks):
-            h, _ = blk(h, cfg, cos, sin, impl=impl)
-        return self.logits(h)
+            h, _ = run(blk, h, cfg, cos, sin, impl=impl, ctx=ctx)
+        return self.logits(h, ctx)
 
 
 def _rope(cfg: ModelConfig, S: int, offset: int = 0, *, device):

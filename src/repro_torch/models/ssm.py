@@ -22,6 +22,7 @@ and orientation.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -32,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_folded
 from repro_torch.models.layers import ParamDef, rmsnorm
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 
 
 # --------------------------------------------------------------------------
@@ -112,10 +114,28 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_in, d_in, G * N, G * N, H], dim=-1)
 
 
+def _scan(xh, dt, A, Bg, Cg, chunk: int, impl: str, ctx: ShardingCtx):
+    """``ssd_scan``; under a mesh, on each rank's batch and heads
+    (``local_map``: each head's scan is independent, and a rank's heads
+    meet their own groups when the groups divide the axis too, or the one
+    group every head shares)."""
+    fn = functools.partial(ssd_scan, chunk=chunk, impl=impl)
+    if not is_dtensor(xh):
+        return fn(xh, dt, A, Bg, Cg)
+    b = ctx.batch_entry(xh.shape[0])
+    G = Bg.shape[2]
+    hd = ctx.head_entry(xh.shape[2], *((G,) if G > 1 else ()))
+    g = hd if G > 1 else None
+    heads = (b, None, hd)
+    groups = (b, None, g)
+    return ctx.kernel_map(fn, (heads, heads, (hd,), groups, groups),
+                          [heads, (b, hd)], xh, dt, A, Bg, Cg)
+
+
 def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
                  conv_state: Optional[torch.Tensor] = None,
                  ssm_state: Optional[torch.Tensor] = None,
-                 impl: str = "auto"):
+                 impl: str = "auto", ctx: ShardingCtx = NULL_CTX):
     """One mamba2 mixer.  Train/prefill: the conv as a sum over its window
     and the SSD through the ``ssd_scan`` entry point (``impl`` picks its
     kernel or plain version); decode (with ``conv_state`` (B, d_conv-1, C)
@@ -163,8 +183,8 @@ def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
         y = y[:, None].to(h.dtype)
         new_ssm_state = new_ssm_state.to(ssm_state.dtype)
     else:
-        y, new_ssm_state = ssd_scan(xh, dt, A, Bg, Cg, chunk=min(s.chunk, S),
-                                    impl=impl)
+        y, new_ssm_state = _scan(xh, dt, A, Bg, Cg, min(s.chunk, S), impl,
+                                 ctx)
     y = y + xh * p.d_skip[None, None, :, None].to(y.dtype)
     y = y.reshape(B_, -1, d_in)
     y = rmsnorm(y * F.silu(z), p.norm_w)

@@ -1,0 +1,349 @@
+"""Sharding rules: logical parameter/activation axes -> mesh axes, on a
+``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`.
+
+The model schemas tag every tensor dimension with a logical axis name;
+this module maps those names onto mesh axes, as the reference's
+``repro.parallel.sharding`` does, and places tensors as DTensors.  One
+rule table covers every architecture:
+
+  vocab / heads / kv_heads / mlp / experts / ssm_inner  -> "model"   (TP/EP)
+  embed                                                 -> "data"    (FSDP)
+  batch                                                 -> ("pod", "data")
+  cache_seq                                             -> "model"   (decode)
+
+A dimension is only sharded if its size divides the mesh-axis size;
+otherwise it falls back to replication, unless its logical axis is in
+``pad_shard_axes`` and the dimension is at least as large as the axis,
+where it becomes DTensor's uneven ``Shard`` (the last shards short, as
+GSPMD's padding leaves them).
+
+    ctx = ShardingCtx(mesh=init_device_mesh("cuda", (2, 2),
+                                            mesh_dim_names=("data", "model")))
+    ctx.distribute(model)                  # nn.Parameters -> DTensors
+    logits = model(ctx.place(tokens, ("batch", "seq")), ctx=ctx)
+
+A spec is a plain tuple, one entry per tensor dimension: ``None``, a mesh
+axis name, or a tuple of mesh axis names (the reference's
+``PartitionSpec``, trailing ``None`` stripped).  ``mesh=None`` is the
+single-device path: every helper is then a no-op.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+# logical axis -> mesh axis (or tuple of mesh axes)
+DEFAULT_RULES: dict[str, object] = {
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "ssm_inner": "model",
+    "embed": "data",          # FSDP: weights gathered per layer
+    "lora": None,
+    "layers": None,
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_embed": None,
+    "cache_seq": "model",
+    "cache_heads": None,
+    "vis_seq": None,
+}
+
+# pure-FSDP layout: no tensor parallelism — batch over every mesh axis,
+# weights fully sharded on their embed dim and gathered per layer.  The
+# layout for archs whose head/ff dims divide the model axis poorly
+# (smollm 9 heads, minicpm 40 heads, starcoder 36).
+FSDP_RULES: dict[str, object] = {
+    **DEFAULT_RULES,
+    "vocab": None,
+    "heads": None,
+    "kv_heads": None,
+    "mlp": None,
+    "experts": None,
+    "ssm_inner": None,
+    "embed": ("data", "model"),
+    "batch": ("pod", "data", "model"),
+    "cache_seq": None,
+}
+
+LAYOUTS = {"tp": DEFAULT_RULES, "fsdp": FSDP_RULES}
+
+
+def _mesh_shape(mesh) -> dict[str, int]:
+    """Axis name -> size of a ``DeviceMesh`` (its ``mesh_dim_names`` and
+    ``shape``), or of any object whose ``shape`` is such a dict."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        return dict(mesh.shape)
+    return dict(zip(names, mesh.shape))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    """Mesh + rules + helpers.  ``mesh=None`` => single device."""
+
+    mesh: Optional[object] = None
+    rules: dict = dataclasses.field(default_factory=lambda: dict(DEFAULT_RULES))
+    moe_impl: str = "replicated"   # replicated | alltoall | auto
+    remat: bool = True
+    # logical axes allowed to shard unevenly when the dim does not divide
+    # the mesh axis (e.g. 40 heads over 16 shards: shards of 3, the last
+    # of 0)
+    pad_shard_axes: tuple = ()
+    # decode attention over a model-sharded KV cache by flash-decoding
+    # (partial softmax per shard + one max and two sum reductions)
+    flash_decode: bool = False
+
+    # ------------------------------------------------------------ axis math
+    @property
+    def shape(self) -> dict[str, int]:
+        return {} if self.mesh is None else _mesh_shape(self.mesh)
+
+    def _axis_size(self, mesh_axes) -> int:
+        if self.mesh is None:
+            return 1
+        if isinstance(mesh_axes, str):
+            return self.shape[mesh_axes]
+        return math.prod(self.shape[a] for a in mesh_axes)
+
+    def spec_for(self, axes: tuple, shape: tuple | None = None) -> tuple:
+        """Logical axes tuple -> spec (with divisibility checks)."""
+        parts = []
+        used: set = set()
+        mesh_shape = self.shape
+        for i, ax in enumerate(axes):
+            mesh_axes = self.rules.get(ax) if ax else None
+            if mesh_axes is None:
+                parts.append(None)
+                continue
+            flat = (mesh_axes,) if isinstance(mesh_axes, str) else tuple(mesh_axes)
+            if self.mesh is not None:
+                # drop axes absent from this mesh (e.g. "pod" on single-pod)
+                flat = tuple(a for a in flat if a in mesh_shape)
+            if not flat or any(a in used for a in flat):
+                parts.append(None)  # a mesh axis may appear only once
+                continue
+            mesh_axes = flat[0] if len(flat) == 1 else flat
+            if self.mesh is not None and shape is not None:
+                sz = self._axis_size(mesh_axes)
+                if shape[i] % sz != 0:
+                    # uneven sharding only where opted-in and dim >= axis
+                    if not (ax in self.pad_shard_axes and shape[i] >= sz):
+                        parts.append(None)
+                        continue
+            parts.append(mesh_axes)
+            used.update(flat)
+        while parts and parts[-1] is None:
+            parts.pop()
+        return tuple(parts)
+
+    def placements_of(self, spec: Sequence) -> list:
+        """A spec -> one DTensor placement per mesh dim: ``Shard(d)`` on
+        each mesh axis that tensor dim ``d`` names, ``Replicate()`` on the
+        others.  A dim sharded over several mesh axes takes them in the
+        mesh's order (``("data", "model")`` on a data x model mesh), the
+        only order DTensor's ``Shard`` can express."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = list(self.shape)
+        out = [Replicate() for _ in names]
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            flat = (entry,) if isinstance(entry, str) else tuple(entry)
+            pos = [names.index(a) for a in flat]
+            if pos != sorted(pos):
+                raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                                 f"axis order {tuple(names)}")
+            for p in pos:
+                out[p] = Shard(dim)
+        return out
+
+    def placements_for(self, axes: tuple, shape: tuple | None = None) -> list:
+        """Logical axes -> DTensor placements (:meth:`spec_for`, then
+        :meth:`placements_of`)."""
+        return self.placements_of(self.spec_for(axes, shape))
+
+    # ------------------------------------------------------------ tensors
+    def place(self, t: torch.Tensor, axes: tuple):
+        """A full tensor, the same on every rank, as a DTensor placed by
+        ``axes``: each rank keeps its own chunk, no collective.  No-op
+        without a mesh."""
+        if self.mesh is None or is_dtensor(t):
+            return t
+        from torch.distributed.tensor import distribute_tensor
+        t = t.to(self.mesh.device_type)
+        return distribute_tensor(t, self.mesh,
+                                 self.placements_for(axes, tuple(t.shape)),
+                                 src_data_rank=None)
+
+    def distribute(self, model: nn.Module) -> nn.Module:
+        """Replace each parameter of a ``Transformer`` with a DTensor
+        parameter placed by its ``ParamDef`` (a layer's slice takes the
+        stacked leaf's axes without the leading ``"layers"``), in place;
+        returns the model.  Every rank must hold the same weights: each
+        keeps its own chunk.  No-op without a mesh."""
+        if self.mesh is None:
+            return model
+        from torch.distributed.tensor import distribute_tensor
+
+        from repro_torch.models.model import param_leaves
+        for name, _, layer, d in param_leaves(model.cfg):
+            axes, shape = ((d.axes, d.shape) if layer is None
+                           else (d.axes[1:], d.shape[1:]))
+            *parents, leaf = name.split(".")
+            owner = model.get_submodule(".".join(parents))
+            p = getattr(owner, leaf)
+            dt = distribute_tensor(p.detach(), self.mesh,
+                                   self.placements_for(axes, shape),
+                                   src_data_rank=None)
+            setattr(owner, leaf,
+                    nn.Parameter(dt, requires_grad=p.requires_grad))
+        return model
+
+    def scope(self):
+        """The context a sharded forward runs in: plain tensors met among
+        DTensors (rope tables, masks) act as replicated
+        (``implicit_replication``).  A null context without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return _replicating()
+
+    # ------------------------------------------------------------ act utils
+    def constrain(self, x, *axes):
+        """Redistribute a DTensor activation to the placement ``axes``
+        give it (no-op without a mesh)."""
+        if self.mesh is None:
+            return x
+        return x.redistribute(self.mesh,
+                              self.placements_for(axes, tuple(x.shape)))
+
+    def head_entry(self, *counts: int):
+        """The spec entry of a heads dim a kernel runs over: the mesh axes
+        the ``"heads"`` rule names when each of ``counts`` (query heads,
+        KV heads, SSM groups) divides their size, so that each rank's
+        query heads meet their own KV heads or groups; else None (every
+        rank computes every head)."""
+        entry = self.spec_for(("heads",), (counts[0],))
+        if not entry or any(c % self._axis_size(entry[0]) for c in counts):
+            return None
+        return entry[0]
+
+    def batch_entry(self, B: int):
+        """The spec entry of a batch dim of size ``B``."""
+        entry = self.spec_for(("batch",), (B,))
+        return entry[0] if entry else None
+
+    @property
+    def model_axis_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    def batch_axes(self) -> tuple:
+        """Mesh axes that shard the batch dim."""
+        r = self.rules.get("batch")
+        if r is None or self.mesh is None:
+            return ()
+        flat = (r,) if isinstance(r, str) else tuple(r)
+        return tuple(a for a in flat if a in self.shape)
+
+    def group(self, axis: str):
+        """The process group of mesh axis ``axis``."""
+        return self.mesh.get_group(axis)
+
+    def call_block(self, block, *args, **kwargs):
+        """``block(*args, **kwargs)``, under activation checkpointing when
+        a mesh is set, ``remat`` is on and grad is enabled (the
+        reference's ``_maybe_remat``: the backward recomputes the block's
+        activations; no value changes)."""
+        if self.mesh is not None and self.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            def scoped(*a, **k):      # the recompute runs in the backward
+                with self.scope():
+                    return block(*a, **k)
+            return checkpoint(scoped, *args, use_reentrant=False, **kwargs)
+        return block(*args, **kwargs)
+
+    def kernel_map(self, fn, specs: Sequence[Sequence], out_spec: Sequence,
+                   *tensors, partial: Optional[Sequence] = None):
+        """Run ``fn`` (a kernel entry point, or any function of plain
+        tensors) on each rank's shards of DTensor ``tensors``, each
+        redistributed to its spec in ``specs`` first; the result is a
+        DTensor placed by ``out_spec``, or, with a list of specs, a tuple
+        of DTensors placed by them (``local_map``).  ``partial`` gives,
+        for each input, the mesh axes over which its gradient is a
+        partial sum (a weight replicated over an axis that splits the
+        tokens it meets), summed when the gradient is redistributed; the
+        gradient is placed as its input elsewhere.  Plain tensors go to
+        ``fn`` as they are."""
+        if not tensors or not is_dtensor(tensors[0]):
+            return fn(*tensors)
+        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor.experimental import local_map
+        in_pl = tuple(self.placements_of(s) for s in specs)
+        grads = None
+        if partial is not None:
+            grads = []
+            for pl, axes in zip(in_pl, partial):
+                pl = list(pl)
+                for i, a in enumerate(self.shape):
+                    if a in axes:
+                        pl[i] = Partial()
+                grads.append(pl)
+            grads = tuple(grads)
+        out = (tuple(self.placements_of(o) for o in out_spec)
+               if isinstance(out_spec, list) else self.placements_of(out_spec))
+        return local_map(
+            fn, out_placements=out,
+            in_placements=in_pl, in_grad_placements=grads,
+            device_mesh=self.mesh, redistribute_inputs=True)(*tensors)
+
+    def spec_axes(self, spec: Sequence) -> tuple:
+        """The mesh axes a spec shards over."""
+        return tuple(a for e in spec if e is not None
+                     for a in ((e,) if isinstance(e, str) else e))
+
+NULL_CTX = ShardingCtx(mesh=None)
+
+# how deep the scopes of sharded runs are nested on this thread: the inner
+# ones (a checkpointed block's recompute, inside the backward of a step)
+# must not end the outer one, and ``implicit_replication`` does not nest
+_DEPTH = 0
+
+
+@contextlib.contextmanager
+def _replicating():
+    global _DEPTH
+    if _DEPTH:
+        _DEPTH += 1
+        try:
+            yield
+        finally:
+            _DEPTH -= 1
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        _DEPTH = 1
+        try:
+            yield
+        finally:
+            _DEPTH = 0
+
+
+def make_mesh(device_type: str, shape: tuple,
+              names: tuple = ("data", "model")):
+    """A ``DeviceMesh`` of ``shape`` over the process group already
+    started (``torch.distributed.init_process_group``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=names)

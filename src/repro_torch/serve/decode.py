@@ -10,13 +10,22 @@ same tensors that came in.  A VLM's or an encoder-decoder model's cross
 layers read a frozen cross K/V cache, built once per request by
 :func:`prefill_cross_cache` (after :func:`encode` for an encoder-decoder
 model), and never write it.
+
+With a mesh in ``ctx`` (the model distributed by it, the caches placed by
+it: :func:`~repro_torch.serve.kvcache.init_cache`), the step runs on
+DTensors; a GQA layer with ``ctx.flash_decode`` on a mesh with a
+``"model"`` axis attends over its sequence-sharded cache by
+flash-decoding (:func:`~repro_torch.models.layers.flash_decode_gqa`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.models.model import (Transformer, _hybrid_split, _rope,
                                       _vlm_split)
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx
 
 
 def _attn_cache(c: dict, layer: int):
@@ -37,12 +46,13 @@ def _max_cache_len(caches: dict, cfg) -> int:
     return c["ckv"].shape[2] if "ckv" in c else c["k"].shape[3]
 
 
-def _mamba_layers(blocks, cfg, caches: dict, h, first: int = 0):
+def _mamba_layers(blocks, cfg, caches: dict, h, first: int = 0,
+                  ctx: ShardingCtx = NULL_CTX):
     """Run ``blocks``, block i with cache slot ``first + i``."""
     for i, blk in enumerate(blocks):
         conv, state = caches["conv"][first + i], caches["state"][first + i]
         h, (new_conv, new_state) = blk(h, cfg, conv_state=conv,
-                                       ssm_state=state)
+                                       ssm_state=state, ctx=ctx)
         # new_conv is a slice of a window built with cat, not a view of
         # the cache slot it overwrites
         conv.copy_(new_conv)
@@ -50,9 +60,8 @@ def _mamba_layers(blocks, cfg, caches: dict, h, first: int = 0):
     return h
 
 
-@torch.inference_mode()
 def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
-                pos: int):
+                pos: int, ctx: Optional[ShardingCtx] = None):
     """One token for the whole batch at write position ``pos`` (an int;
     an SSM model's step does not depend on it).
 
@@ -65,12 +74,24 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
     encoder-decoder model runs each decoder layer on its ``self`` cache
     slot and its ``cross`` slot.  The self-attention caches are updated
     in place; every cache comes back."""
+    ctx = ctx or NULL_CTX
+    # DTensor's view ops (a layer's slice of a cache) set the version
+    # counter of the views they make, which inference mode forbids: a
+    # sharded step runs under no_grad
+    no_grad = torch.inference_mode() if ctx.mesh is None else torch.no_grad()
+    with no_grad, ctx.scope():
+        return _decode(model, caches, tokens, pos, ctx)
+
+
+def _decode(model: Transformer, caches: dict, tokens: torch.Tensor,
+            pos: int, ctx: ShardingCtx):
     cfg = model.cfg
     B, S1 = tokens.shape
-    h = model.embed(tokens)
+    h = model.embed(ctx.place(tokens, ("batch", None)), ctx)
+    h = ctx.constrain(h, "batch", None, "act_embed")
     if cfg.family == "ssm":
-        h = _mamba_layers(model.blocks, cfg, caches["blocks"], h)
-        return model.logits(h), caches
+        h = _mamba_layers(model.blocks, cfg, caches["blocks"], h, ctx=ctx)
+        return model.logits(h, ctx), caches
     max_seq = _max_cache_len(caches, cfg)
     if not 0 <= pos <= max_seq - S1:
         raise ValueError(f"write position {pos} (+{S1}) outside the cache "
@@ -82,33 +103,35 @@ def decode_step(model: Transformer, caches: dict, tokens: torch.Tensor,
         G, k, _ = _hybrid_split(cfg)
         for g in range(G):
             h = _mamba_layers(model.blocks[g * k:(g + 1) * k], cfg,
-                              caches["blocks"], h, first=g * k)
+                              caches["blocks"], h, first=g * k, ctx=ctx)
             h, _ = model.shared(h, cfg, cos, sin, pos=pos,
-                                cache=_attn_cache(caches["shared"], g))
+                                cache=_attn_cache(caches["shared"], g),
+                                ctx=ctx)
         if len(model.trailing):
-            h = _mamba_layers(model.trailing, cfg, caches["trailing"], h)
-        return model.logits(h), caches
+            h = _mamba_layers(model.trailing, cfg, caches["trailing"], h,
+                              ctx=ctx)
+        return model.logits(h, ctx), caches
     if cfg.family == "vlm":
         G, k = _vlm_split(cfg)
         for g in range(G):
             for layer in range(g * k, (g + 1) * k):
                 h, _ = model.blocks[layer](
                     h, cfg, cos, sin, pos=pos,
-                    cache=_attn_cache(caches["blocks"], layer))
+                    cache=_attn_cache(caches["blocks"], layer), ctx=ctx)
             h = model.cross[g](h, cfg,
                                cross_kv=_attn_cache(caches["cross"], g))
-        return model.logits(h), caches
+        return model.logits(h, ctx), caches
     if cfg.family == "encdec":
         for layer, blk in enumerate(model.decoder):
             h, _ = blk(h, cfg, cos, sin, pos=pos,
                        cache=_attn_cache(caches["self"], layer),
-                       cross_kv=_attn_cache(caches["cross"], layer))
-        return model.logits(h), caches
+                       cross_kv=_attn_cache(caches["cross"], layer), ctx=ctx)
+        return model.logits(h, ctx), caches
     for group, blocks in (("dense0", model.dense0), ("blocks", model.blocks)):
         for layer, blk in enumerate(blocks):
             h, _ = blk(h, cfg, cos, sin, pos=pos,
-                       cache=_attn_cache(caches[group], layer))
-    return model.logits(h), caches
+                       cache=_attn_cache(caches[group], layer), ctx=ctx)
+    return model.logits(h, ctx), caches
 
 
 @torch.inference_mode()

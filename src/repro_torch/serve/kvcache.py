@@ -24,6 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import resolve_device
 from repro_torch.models.layers import ParamDef
 from repro_torch.models.model import _hybrid_split, _vlm_split, check_ported
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx
 
 
 def _gqa_kv(cfg: ModelConfig, L: int, B: int, S: int) -> dict:
@@ -96,7 +97,8 @@ def cache_schema(cfg: ModelConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                dtype: torch.dtype = torch.float32, device="cuda",
-               src_len: int | None = None) -> dict:
+               src_len: int | None = None,
+               ctx: ShardingCtx | None = None) -> dict:
     """Zeroed decode caches made on ``device``, in ``dtype`` except where
     the schema pins one: for a dense GQA model ``{"blocks": {"k", "v"}}``,
     each (L, B, Hkv, max_seq, Dh); for a dense MLA model ``{"blocks":
@@ -115,11 +117,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     its cross k/v over ``src_len`` source positions (``cross``, (L, B,
     Hkv, src_len or max_seq, Dh)).  The cross caches are zeros here:
     :func:`~repro_torch.serve.decode.prefill_cross_cache` builds the
-    frozen ones."""
+    frozen ones.  With a mesh in ``ctx``, each cache is a DTensor placed
+    by its axes (``cache_seq`` on the model axis, ``batch`` on the batch
+    axes)."""
     check_ported(cfg)
     dev = resolve_device(device)
+    ctx = ctx or NULL_CTX
     sch = cache_schema(cfg, batch, max_seq, src_len=src_len)
-    return {grp: {name: torch.zeros(d.shape, dtype=d.dtype or dtype,
-                                    device=dev)
+    return {grp: {name: ctx.place(torch.zeros(d.shape,
+                                              dtype=d.dtype or dtype,
+                                              device=dev), d.axes)
                   for name, d in leaves.items()}
             for grp, leaves in sch.items()}

@@ -19,7 +19,13 @@ either package restores in the other.
   rename), so a failure mid-checkpoint never corrupts the latest good
   one; ``keep`` rotation bounds disk use;
 * restore checks every leaf's shape against the model's and places the
-  leaves on the model's device.
+  leaves on the model's device;
+* a model distributed over a mesh (DTensor parameters and moments) is
+  saved whole: every rank gathers each leaf, rank 0 alone writes the
+  same files as a one-device save, and every rank waits for it;
+  ``restore_checkpoint(..., ctx=ctx)`` places each restored leaf by
+  ``ctx``, as :meth:`~repro_torch.parallel.sharding.ShardingCtx.
+  distribute` placed the parameters.
 """
 from __future__ import annotations
 
@@ -29,9 +35,11 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.model import (Transformer, param_leaves,
                                       stacked_leaves, unstacked)
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 from repro_torch.train.optimizer import AdamWState
 
 # NumPy descr the reference's bfloat16 leaves are written under
@@ -63,12 +71,15 @@ def _trees(model: Transformer, opt_state: AdamWState | None):
     """(manifest key, tensor) of every leaf to save, in the reference's
     order: the params, then the optimizer's step, m and v."""
     cfg = model.cfg
-    for key, t in stacked_leaves(cfg, dict(model.named_parameters())):
+    whole = lambda ts: {k: t.full_tensor() if is_dtensor(t) else t
+                        for k, t in ts.items()}
+    for key, t in stacked_leaves(cfg, whole(dict(model.named_parameters()))):
         yield f"params/{key}", t
     if opt_state is not None:
         yield "opt/.step", opt_state.step
         for part in ("m", "v"):
-            for key, t in stacked_leaves(cfg, getattr(opt_state, part)):
+            for key, t in stacked_leaves(cfg, whole(getattr(opt_state,
+                                                            part))):
                 yield f"opt/.{part}/{key}", t
 
 
@@ -76,12 +87,25 @@ def _trees(model: Transformer, opt_state: AdamWState | None):
 def save_checkpoint(directory: str, step: int, model: Transformer,
                     opt_state: AdamWState | None = None, keep: int = 3,
                     extra: dict | None = None) -> str:
-    """Atomic save; returns the final checkpoint path."""
+    """Atomic save; returns the final checkpoint path.  A distributed
+    model is gathered on every rank and written by rank 0."""
     base = os.path.join(directory, f"step_{step:08d}")
+    if any(is_dtensor(p) for p in model.parameters()):
+        leaves = list(_trees(model, opt_state))      # every rank gathers
+        if dist.get_rank() == 0:
+            _write(directory, base, step, leaves, keep, extra)
+        dist.barrier()
+        return base
+    _write(directory, base, step, _trees(model, opt_state), keep, extra)
+    return base
+
+
+def _write(directory: str, base: str, step: int, leaves, keep: int,
+           extra: dict | None) -> None:
     tmp = base + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}, "extra": extra or {}}
-    for key, t in _trees(model, opt_state):
+    for key, t in leaves:
         fname = key.replace("/", "__") + ".npy"
         dtype = _save_leaf(os.path.join(tmp, fname), t)
         manifest["leaves"][key] = {"file": fname, "shape": list(t.shape),
@@ -94,7 +118,6 @@ def save_checkpoint(directory: str, step: int, model: Transformer,
         shutil.rmtree(base)
     os.rename(tmp, base)
     _rotate(directory, keep)
-    return base
 
 
 def _rotate(directory: str, keep: int) -> None:
@@ -114,14 +137,17 @@ def latest_checkpoint(directory: str) -> str | None:
 
 @torch.no_grad()
 def restore_checkpoint(path: str, model: Transformer,
-                       opt_like: AdamWState | None = None) -> dict:
+                       opt_like: AdamWState | None = None,
+                       ctx: ShardingCtx | None = None) -> dict:
     """Restore the checkpoint at ``path`` into ``model`` (its parameters
     are overwritten in place) and, with ``opt_like``, a new
     :class:`AdamWState` on the model's device, each leaf in the dtype it
     was saved in.  Every leaf's shape is checked against the model's
-    before anything is written: a mismatch raises ``ValueError``.
-    Returns ``{"step", "params": model, "extra"}``, and ``"opt"`` with
-    ``opt_like``."""
+    before anything is written: a mismatch raises ``ValueError``.  A
+    model distributed by ``ctx`` gets each rank's shard of each leaf, the
+    moments placed as their parameters.  Returns ``{"step", "params":
+    model, "extra"}``, and ``"opt"`` with ``opt_like``."""
+    ctx = ctx or NULL_CTX
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     cfg, dev = model.cfg, model.device
@@ -146,9 +172,20 @@ def restore_checkpoint(path: str, model: Transformer,
                                  f"{tuple(meta['shape'])}")
         return unstacked(cfg, leaves)
 
+    defs = {name: d.axes if layer is None else d.axes[1:]
+            for name, _, layer, d in param_leaves(cfg)}
     params = dict(model.named_parameters())
+    if ctx.mesh is None and any(is_dtensor(p) for p in params.values()):
+        raise ValueError("restoring into a distributed model needs the ctx "
+                         "that distributed it")
+
+    def placed(k: str, t: torch.Tensor) -> torch.Tensor:
+        return ctx.place(t.to(dev), defs[k])
+
     for k, t in load("params").items():
-        params[k].copy_(t)
+        p = params[k]
+        (p.to_local() if is_dtensor(p) else p).copy_(
+            placed(k, t).to_local() if is_dtensor(p) else t)
     out = {"step": manifest["step"], "params": model,
            "extra": manifest.get("extra", {})}
     if opt_like is not None:
@@ -156,6 +193,6 @@ def restore_checkpoint(path: str, model: Transformer,
         step = _load_leaf(os.path.join(path, meta["file"]), meta)
         out["opt"] = AdamWState(
             step=step.to(dev),
-            m={k: t.to(dev) for k, t in load("opt/.m").items()},
-            v={k: t.to(dev) for k, t in load("opt/.v").items()})
+            m={k: placed(k, t) for k, t in load("opt/.m").items()},
+            v={k: placed(k, t) for k, t in load("opt/.v").items()})
     return out

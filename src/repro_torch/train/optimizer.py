@@ -17,6 +17,13 @@ The clip scale, the step and the learning rate stay on the device, so an
 update reads nothing back to the host.  The parameters are updated in
 place (each ``copy_`` of its new value, in its own dtype); the moments
 are new tensors in a new :class:`AdamWState`.
+
+DTensor parameters (a model distributed over a mesh) keep DTensor moments
+with their placements.  Each gradient is first reduced to its
+parameter's placement (a partial sum over the ranks that split the
+tokens is summed); the gradient norm is that of the full gradient (each
+sum of squares of a shard summed over the ranks) before the clip; the
+update itself runs on each rank's shards.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Mapping, NamedTuple, Union
 
 import torch
 from torch import nn
+
+from repro_torch.parallel.sharding import is_dtensor
 
 
 class AdamWState(NamedTuple):
@@ -58,8 +67,7 @@ class AdamW:
         mapping of tensors), in ``state_dtype`` on each parameter's
         device; step 0."""
         ps = named(params)
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.state_dtype,
-                                      device=p.device)
+        zeros = lambda p: torch.zeros_like(p, dtype=self.state_dtype)
         device = next(iter(ps.values())).device
         return AdamWState(
             step=torch.zeros((), dtype=torch.int32, device=device),
@@ -77,7 +85,8 @@ class AdamW:
         ``grads``) is overwritten with its new value.  Returns (the new
         state, the global gradient norm before the clip, float32 0-d)."""
         ps = named(params)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+        grads = {k: _placed_as(g, ps[k]) for k, g in grads.items()}
+        gnorm = torch.sqrt(sum(_whole(torch.sum(torch.square(g.float())))
                                for g in grads.values()))
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         step = state.step + 1
@@ -86,14 +95,43 @@ class AdamW:
         b2c = 1 - self.b2 ** step.float()
         m_new, v_new = {}, {}
         for k, p in ps.items():
-            g = grads[k].float() * scale
-            m = self.b1 * state.m[k].float() + (1 - self.b1) * g
-            v = self.b2 * state.v[k].float() + (1 - self.b2) * g * g
+            local = _local(p)
+            g = _local(grads[k]).float() * scale
+            m = self.b1 * _local(state.m[k]).float() + (1 - self.b1) * g
+            v = self.b2 * _local(state.v[k]).float() + (1 - self.b2) * g * g
             mh = m / b1c
             vh = v / b2c
             delta = mh / (torch.sqrt(vh) + self.eps) \
-                + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * delta)
-            m_new[k] = m.to(self.state_dtype)
-            v_new[k] = v.to(self.state_dtype)
+                + self.weight_decay * local.float()
+            local.copy_(local.float() - lr * delta)
+            m_new[k] = _shaped_as(m.to(self.state_dtype), p)
+            v_new[k] = _shaped_as(v.to(self.state_dtype), p)
         return AdamWState(step=step, m=m_new, v=v_new), gnorm
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (a view); a tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor reduction made whole (partial sums summed) as a plain
+    tensor; a tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _placed_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placement."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _shaped_as(local: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A shard computed on this rank as a DTensor placed as ``p``; a
+    tensor as it is when ``p`` is one."""
+    if not is_dtensor(p):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              shape=p.shape, stride=p.stride())

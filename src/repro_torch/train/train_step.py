@@ -6,7 +6,14 @@ accumulation: the reference's ``repro.train.train_step`` on a
     opt_state, metrics = step(model, opt_state, batch)
 
 The model's parameters are updated in place; ``metrics`` holds ``loss``,
-``grad_norm`` and ``step`` as 0-d tensors on the model's device.  The
+``grad_norm`` and ``step`` as 0-d tensors on the model's device.
+
+With a mesh in ``ctx`` (``make_train_step(cfg, opt, ctx)``, the model
+distributed by ``ctx.distribute``), every rank passes the same global
+batch: the step places it by ``"batch"`` (each rank keeps its rows), the
+forward and backward run on DTensors, each gradient is reduced to its
+parameter's placement, and ``loss`` and ``grad_norm`` come back whole on
+every rank.  The
 gradients come from autograd through the model's forward; on a GPU the
 flash attention and SSD scan go through their ``autograd.Function``s,
 whose backwards are CUDA kernels too (the reference's Pallas kernels
@@ -15,10 +22,13 @@ here does).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Transformer
+from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 from repro_torch.train.optimizer import AdamW, AdamWState
 
 
@@ -32,32 +42,51 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return (lse - ll).mean()
 
 
-def loss_fn(model: Transformer, batch: dict) -> torch.Tensor:
+def loss_fn(model: Transformer, batch: dict,
+            ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """The cross entropy of ``model`` on ``batch``: ``tokens`` and
     ``labels`` (B, S), and a VLM's ``vision_embed`` or an encoder-decoder
     model's ``enc_embed``, as :meth:`Transformer.forward` takes them."""
     logits = model(batch["tokens"], vision_embed=batch.get("vision_embed"),
-                   enc_embed=batch.get("enc_embed"))
-    return cross_entropy(logits, batch["labels"].to(logits.device))
+                   enc_embed=batch.get("enc_embed"), ctx=ctx)
+    labels = ctx.place(batch["labels"].to(logits.device), ("batch", "seq"))
+    if is_dtensor(logits):
+        # DTensor's aten.gather rule mis-masks a vocab-sharded input
+        # (IndexError in its partial's mask), so the labels' logits are
+        # read with the vocab replicated
+        logits = ctx.constrain(logits, "batch", "seq", None)
+    return cross_entropy(logits, labels)
 
 
-def _grads(model: Transformer, params: dict, batch: dict):
+def _grads(model: Transformer, params: dict, batch: dict,
+           ctx: ShardingCtx):
     """(loss, gradients by parameter name); a parameter the forward does
     not use (a VLM cross layer's ``ln3``) gets zeros, as under
-    ``jax.grad``."""
-    loss = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
-    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
-                           for (k, p), g in zip(params.items(), grads)}
+    ``jax.grad``.  On a mesh the loss comes back whole and the gradients
+    as DTensors, partial sums where the ranks split the tokens (AdamW
+    reduces them to their parameters' placements)."""
+    with ctx.scope():
+        loss = loss_fn(model, batch, ctx)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+    if is_dtensor(loss):
+        loss = loss.full_tensor()
+    return loss.detach(), grads
 
 
-def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
+def make_train_step(cfg: ModelConfig, opt: AdamW,
+                    ctx: Optional[ShardingCtx] = None,
+                    microbatches: int = 1):
     """Returns ``train_step(model, opt_state, batch) -> (opt_state,
     metrics)`` for a model of ``cfg``.  ``microbatches > 1`` splits the
     batch along dim 0 into that many equal slices, sums their gradients
     in float32 in slice order, and divides the sum and the summed loss by
-    ``microbatches`` (activation memory / global-batch decoupling)."""
+    ``microbatches`` (activation memory / global-batch decoupling).
+    ``ctx`` with a mesh runs the step sharded (the model distributed by
+    it); each microbatch slice is then placed on the mesh."""
+    ctx = ctx or NULL_CTX
 
     def train_step(model: Transformer, opt_state: AdamWState, batch: dict):
         if model.cfg != cfg:
@@ -65,20 +94,19 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
                              f"is {model.cfg.name}")
         params = dict(model.named_parameters())
         if microbatches == 1:
-            loss, grads = _grads(model, params, batch)
+            loss, grads = _grads(model, params, batch, ctx)
         else:
             B = batch["tokens"].shape[0]
             if B % microbatches:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             mb = B // microbatches
-            gsum = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                   device=p.device)
+            gsum = {k: torch.zeros_like(p, dtype=torch.float32)
                     for k, p in params.items()}
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(microbatches):
                 part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss, g = _grads(model, params, part)
+                loss, g = _grads(model, params, part, ctx)
                 gsum = {k: gsum[k] + g[k] for k in gsum}
                 lsum = lsum + loss
             grads = {k: g / microbatches for k, g in gsum.items()}

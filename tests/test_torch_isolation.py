@@ -55,6 +55,7 @@ def test_importing_port_loads_neither_jax_nor_reference():
         "import repro_torch.launch.train, repro_torch.train.checkpoint\n"
         "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
         "import repro_torch.configs.registry\n"
+        "import repro_torch.parallel.sharding\n"
         "import repro_torch.workloads\n"
         "import repro_torch.sim.scenarios, repro_torch.sim.batchsim\n"
         "import repro_torch.cluster.scheduler, repro_torch.beliefs\n"
