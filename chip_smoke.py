@@ -162,6 +162,16 @@ toolkit.  The script
    ``EXPECTED``, and a sharded refine of an all-to-all guest on the
    implicit 8^3 torus (``swap_select``, ``torus_hop``) bit-equal to the
    one-device dispatch; every line with the card's name and power limit;
+7g. runs the dry run (the ``dryrun`` phase): ``python -m
+   repro_torch.launch.dryrun`` on smollm-135m x train_4k (16 x 16 mesh)
+   and deepseek-v2-lite-16b x decode_32k (2 x 16 x 16), each in a process
+   of its own (its fake process group of 256 or 512 ranks is
+   process-wide) with the placement analysis on the card, each row printed
+   with the launches of each placement kernel in it; TOFA on each cell's
+   guest graph on the H100 fabric, on the card at float64, held bit for
+   bit to the NumPy engine's placement; and, at world size 1 on an nccl
+   group, ``make_tofa_mesh`` on a profile of the smollm-135m step and one
+   ``parallel_train_cell`` step on the mesh it builds;
 8. runs the paper's Section 5.2 experiment through the port's scenario
    presets with every placement on ``cuda`` (the ``paper`` phase):
    ``paper-fig4-5`` at the paper's protocol for 85-rank NPB-DT (10
@@ -3476,13 +3486,14 @@ def card() -> str:
     return CARD[0]
 
 
-def parallel_train_cell(dev, mesh) -> None:
-    """parallel/train/smollm-135m: the sharded steps held to the unsharded
-    ones bit for bit, or by ``train_agrees`` (rtol 1e-4) where DTensor
-    reorders a sum (``bit_equal`` says which); each step's wall, the host
-    ms the DTensor step adds to the warm step, and the flash forward and
-    backward launches under the mesh (one forward and its recompute, and
-    one backward, a layer and step)."""
+def parallel_train_cell(dev, mesh, steps: int = PARALLEL_TRAIN_STEPS,
+                        phase: str = "parallel/train/smollm-135m") -> None:
+    """parallel/train/smollm-135m: ``steps`` sharded steps held to the
+    unsharded ones bit for bit, or by ``train_agrees`` (rtol 1e-4) where
+    DTensor reorders a sum (``bit_equal`` says which); each step's wall,
+    the host ms the DTensor step adds to the warm step, and the flash
+    forward and backward launches under the mesh (one forward and its
+    recompute, and one backward, a layer and step)."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.kernels import reset_launches
@@ -3493,7 +3504,7 @@ def parallel_train_cell(dev, mesh) -> None:
     from repro_torch.train.train_step import make_train_step
 
     cfg = get_arch("smollm-135m")
-    B, S, steps = PARALLEL_TRAIN_B, PARALLEL_TRAIN_S, PARALLEL_TRAIN_STEPS
+    B, S = PARALLEL_TRAIN_B, PARALLEL_TRAIN_S
     ds = SyntheticDataset(cfg.vocab, S, B, seed=0)
     batches = [ds.batch(i) for i in range(steps)]
     opt = AdamW(**TRAIN_OPT)
@@ -3514,8 +3525,9 @@ def parallel_train_cell(dev, mesh) -> None:
     want_launches = {"flash_attention": 2 * cfg.n_layers * steps,
                      "flash_attention_bwd": cfg.n_layers * steps}
     bit_equal = got == want
-    rec = {"phase": "parallel/train/smollm-135m", "card": card(),
+    rec = {"phase": phase, "card": card(),
            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "ranks": mesh.mesh.tolist(),
            "batch": B, "seq": S, "steps": got, "plain_steps": want,
            "bit_equal": bit_equal,
            "sharded_step_ms": [s * 1e3 for s in sharded_s],
@@ -3684,12 +3696,12 @@ def parallel_refine_cell() -> None:
         raise AssertionError("the sharded refine is not the one-device one")
 
 
-def parallel_phase(dev) -> None:
-    """The parallel cells on an nccl group of its own (a file rendezvous
-    under ``build/``), destroyed at the end, then the sharded refine."""
+@contextlib.contextmanager
+def nccl_group_of_one():
+    """This process as the one rank of an nccl group (a file rendezvous
+    under ``build/``), destroyed on exit."""
     import datetime
     import torch.distributed as dist
-    from repro_torch.parallel.sharding import make_mesh
 
     store = ROOT / "build" / "chip_smoke_rendezvous"
     store.parent.mkdir(exist_ok=True)
@@ -3698,6 +3710,18 @@ def parallel_phase(dev) -> None:
                             world_size=1,
                             timeout=datetime.timedelta(seconds=120))
     try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def parallel_phase(dev) -> None:
+    """The parallel cells on an nccl group of its own, destroyed at the
+    end, then the sharded refine."""
+    from repro_torch.parallel.sharding import make_mesh
+
+    with nccl_group_of_one():
         mesh = make_mesh("cuda", (1, 1))
         for cell in (parallel_train_cell, parallel_moe_cell,
                      parallel_decode_cell):
@@ -3705,13 +3729,170 @@ def parallel_phase(dev) -> None:
             cell(dev, mesh)
             emit({"phase": f"{cell.__name__}/done",
                   "s": time.perf_counter() - t0})
-    finally:
-        dist.destroy_process_group()
-        store.unlink(missing_ok=True)
     t0 = time.perf_counter()
     parallel_refine_cell()
     emit({"phase": "parallel_refine_cell/done",
           "s": time.perf_counter() - t0})
+
+
+# The dry run (repro_torch.launch.dryrun) on the card machine: each cell
+# traced on a fake process group of 256 or 512 ranks in a process of its
+# own (the group is process-wide), the placement analysis on the card.
+DRYRUN_CELLS = (("smollm-135m", "train_4k", "off"),
+                ("deepseek-v2-lite-16b", "decode_32k", "on"))
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_MESH_SEQ = 256
+PLACEMENT_KERNELS = ("swap_select", "swap_gain", "torus_hop", "fattree_hop")
+
+
+def dryrun_cells(device: str) -> list:
+    """dryrun/<arch>/<shape>: ``python -m repro_torch.launch.dryrun`` for
+    each of ``DRYRUN_CELLS``, side by side, the placement analysis on
+    ``device``, each writing its row and guest graph under
+    ``chiprun_out/dryrun/``; each row printed with the launches of each
+    placement kernel in it by name.  Returns the guest graphs' paths."""
+    import os
+    import shutil
+
+    out = OUT_DIR / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = []
+    for arch, shape, pod in DRYRUN_CELLS:
+        tag = f"{arch}__{shape}"
+        log = (out / f"{tag}.log").open("w")
+        runs.append((arch, shape, out / f"{tag}.jsonl", log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--multi-pod", pod, "--out",
+             str(out / f"{tag}.jsonl"), "--comm-out", str(out),
+             "--device", device],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
+    t0 = time.perf_counter()
+    bad = []
+    for arch, shape, rows, log, proc in runs:
+        try:
+            rc = proc.wait(max(1.0, DRYRUN_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        row = (json.loads(rows.read_text().splitlines()[-1])
+               if rows.exists() else {})
+        place = row.get("placement", {})
+        ok = (rc == 0 and row.get("ok") is True
+              and {"linear", "tofa"} <= set(place)
+              and row.get("devices") in (256, 512))
+        emit({"phase": f"dryrun/{arch}/{shape}", "card": card(), "rc": rc,
+              "s": time.perf_counter() - t0,
+              "launches": row.get("placement_launches"), "row": row,
+              "ok": ok})
+        if not ok:
+            bad.append(f"{arch}/{shape}")
+    if bad:
+        raise AssertionError(f"dry-run cells failed: {bad} "
+                             f"(logs in {out})")
+    return sorted(out.glob("*.npz"))
+
+
+def dryrun_tofa_cell(path, device: str) -> None:
+    """dryrun/tofa/<cell>: a dry-run cell's guest graph placed by ``tofa``
+    on the H100 fabric by the engine on ``device`` (the card; float64) and
+    by the NumPy engine: the same permutation and hop-bytes, bit for
+    bit."""
+    import numpy as np
+    import torch
+    from repro_torch.core.comm_graph import CommGraph
+    from repro_torch.core.engine import PlacementEngine
+    from repro_torch.core.placement import assign_devices
+    from repro_torch.kernels import reset_launches
+    from repro_torch.launch.roofline import production_fabric
+
+    g = np.load(path)
+    comm = CommGraph(g["G_v"].shape[0], g["G_v"], g["G_m"])
+    fabric = production_fabric(comm.n)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = assign_devices(comm, fabric,
+                             engine=PlacementEngine(device=device),
+                             rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = _count_path(PLACEMENT_KERNELS)
+    t0 = time.perf_counter()
+    host = assign_devices(comm, fabric,
+                          engine=PlacementEngine(backend="numpy"),
+                          rng=np.random.default_rng(0))
+    same = bool(np.array_equal(on_card.permutation, host.permutation))
+    rec = {"phase": f"dryrun/tofa/{path.stem}", "card": card(),
+           "n": comm.n, "edges": int((comm.G_v > 0).sum()),
+           "hop_bytes_linear": on_card.hop_bytes_linear,
+           "hop_bytes_placed": on_card.hop_bytes_placed,
+           "numpy_hop_bytes_placed": host.hop_bytes_placed,
+           "bit_identical": same, "card_s": card_s,
+           "numpy_s": time.perf_counter() - t0, "launches": launches,
+           "ok": same and on_card.hop_bytes_placed == host.hop_bytes_placed}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"{rec['phase']}: the card's placement is not "
+                             f"the NumPy engine's")
+
+
+def dryrun_mesh_cell(dev) -> None:
+    """dryrun/tofa-mesh: at world size 1 on an nccl group, the smollm-135m
+    train step profiled on fake CPU tensors at B 2 x ``DRYRUN_MESH_SEQ``
+    (one rank runs no collective at any length; the short trace keeps the
+    phase short), ``make_tofa_mesh`` on that profile for a 1 x 1 mesh on
+    the card, and one ``parallel_train_cell`` step on the mesh it
+    builds."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.profiler import fake_mode, profile_torch
+    from repro_torch.launch.mesh import make_tofa_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_arch("smollm-135m")
+    B, S = PARALLEL_TRAIN_B, DRYRUN_MESH_SEQ
+    t0 = time.perf_counter()
+    with fake_mode():
+        model = M.Transformer(cfg, device="cpu")
+        opt = AdamW(**TRAIN_OPT)
+        toks = torch.zeros((B, S), dtype=torch.int32)
+        args = (model, opt.init(model), {"tokens": toks, "labels": toks})
+    prof = profile_torch(make_train_step(cfg, opt), *args)
+    trace_s = time.perf_counter() - t0
+    with nccl_group_of_one():
+        mesh, assignment = make_tofa_mesh(
+            prof, shape=(1, 1), axes=("data", "model"), device=dev,
+            device_type=dev.type)
+        ok = (mesh.mesh.tolist() == [[0]]
+              and assignment.permutation.tolist() == [0])
+        emit({"phase": "dryrun/tofa-mesh", "card": card(),
+              "trace_s": trace_s, "flops": prof.flops,
+              "collectives": len(prof.collectives),
+              "permutation": assignment.permutation.tolist(),
+              "ranks": mesh.mesh.tolist(), "ok": ok})
+        if not ok:
+            raise AssertionError("make_tofa_mesh built another mesh")
+        parallel_train_cell(dev, mesh, steps=1,
+                            phase="dryrun/tofa-mesh/train/smollm-135m")
+
+
+def dryrun_phase(dev) -> None:
+    """The dry-run cells, TOFA on their guest graphs held to the NumPy
+    engine, and a TOFA mesh at world size 1."""
+    for path in dryrun_cells(dev.type):
+        t0 = time.perf_counter()
+        dryrun_tofa_cell(path, dev.type)
+        emit({"phase": f"dryrun/tofa/{path.stem}/done",
+              "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dryrun_mesh_cell(dev)
+    emit({"phase": "dryrun/tofa-mesh/done", "s": time.perf_counter() - t0})
 
 
 # -------------------------------------------------------------------- main
@@ -3840,6 +4021,14 @@ def main() -> int:
         failed.append("parallel")
     torch.cuda.empty_cache()
     emit({"phase": "parallel/done", "s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    try:
+        dryrun_phase(dev)
+    except Exception:                       # reported, and the run fails
+        traceback.print_exc()
+        failed.append("dryrun")
+    torch.cuda.empty_cache()
+    emit({"phase": "dryrun/done", "s": time.perf_counter() - t0})
     for run in placement_phases():
         try:
             run()

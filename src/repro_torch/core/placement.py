@@ -7,16 +7,19 @@ row-major flattening) executes on ``devices.flat[k]``.  Permuting the device
 list is therefore exactly rank placement, and the program is unchanged —
 only the physical realisation of each replica group moves.
 
-This module computes that permutation (the reference package's copy feeds
-it to ``jax.sharding.Mesh``; the port does not construct meshes yet):
+This module computes that permutation, which
+:func:`repro_torch.launch.mesh.make_tofa_mesh` turns into a ``DeviceMesh``
+rank order:
 
-  1. profile the compiled step (``core.profiler``) -> guest graph ``G`` over
-     logical shard ids;
-  2. model the physical fabric (:class:`Fabric`) — v5e pod = 16x16 2D torus
-     of chips over ICI; multi-pod adds a DCN dimension modelled as a
-     high-cost link layer.  ``Fabric`` satisfies the engine's ``Topology``
-     protocol, so it plugs straight into ``PlacementEngine`` alongside
-     ``TorusTopology`` and ``FatTreeTopology``;
+  1. profile the step (``core.profiler``: a torch step on fake tensors, or
+     HLO text) -> guest graph ``G`` over logical shard ids;
+  2. model the physical fabric: :class:`GpuFabric`, H100 nodes of 8 GPUs
+     behind NVSwitch joined by an InfiniBand fat tree; or :class:`Fabric`,
+     the reference's TPU v5e pods (16x16 2D torus of chips over ICI;
+     multi-pod adds a DCN dimension modelled as a high-cost link layer),
+     kept to hold the port to the reference.  Both satisfy the engine's
+     ``Topology`` protocol, so they plug straight into ``PlacementEngine``
+     alongside ``TorusTopology`` and ``FatTreeTopology``;
   3. health feed (``cluster.heartbeat``) -> per-chip outage probabilities;
   4. the requested registry policy (default TOFA) maps logical shards onto
      physical chips through the engine — the caller's ``engine``, else the
@@ -123,6 +126,99 @@ class Fabric:
         return np.concatenate(out, axis=0)
 
 
+# One InfiniBand fat-tree hop counts as the ratio of a GPU's NVLink 4 rate
+# (450 GB/s each way) to its NDR NIC's (400 Gb/s, 50 GB/s), the H100 SXM5
+# 80GB data sheet's (launch.roofline.LINK_BW / IB_BW), as DCN_HOP_COST
+# models the DCN in the reference's Fabric.
+IB_HOP_COST = 9.0
+# GPUs in a node behind one NVSwitch (an HGX H100 board)
+GPUS_PER_NODE = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuFabric:
+    """H100 cluster: nodes of ``GPUS_PER_NODE`` GPUs behind one NVSwitch
+    (one crossing costs 1), the nodes on an InfiniBand fat tree: the first
+    hosts of the smallest k-ary :class:`~repro_torch.core.fattree.
+    FatTreeTopology` that holds them, each fat-tree hop costing
+    ``ib_hop_cost``.  Ranks are node-major, torchrun's order: GPU ``r``
+    sits on node ``r // GPUS_PER_NODE``.
+
+    Eq. 1 weighs at node granularity, since a node failure takes all its
+    GPUs: a node is faulty (or straggling) as its worst GPU in ``p_f``
+    (``straggler``), and that applies to each of its GPUs; across nodes
+    the fat tree's endpoint-form weights scaled by ``ib_hop_cost``, within
+    a node 1 plus each endpoint's penalty.  Satisfies the
+    :class:`~repro_torch.core.engine.Topology` protocol."""
+
+    n_gpus: int = 256
+    ib_hop_cost: float = IB_HOP_COST
+
+    @property
+    def n_nodes(self) -> int:
+        """Topology-protocol alias: one placement slot per GPU."""
+        return self.n_gpus
+
+    @property
+    def n_hosts(self) -> int:
+        return -(-self.n_gpus // GPUS_PER_NODE)
+
+    def tree(self):
+        from .fattree import FatTreeTopology
+        k = 2
+        while k ** 3 // 4 < self.n_hosts:
+            k += 2
+        return FatTreeTopology(k)
+
+    def host_of(self) -> np.ndarray:
+        """(n_gpus,) node of each GPU."""
+        return np.arange(self.n_gpus) // GPUS_PER_NODE
+
+    def _per_host(self, x) -> np.ndarray:
+        """A per-GPU vector as each node's worst value, on the tree's hosts
+        (the hosts past the cluster's at 0)."""
+        out = np.zeros(self.tree().n_nodes)
+        np.maximum.at(out, self.host_of(), np.asarray(x, dtype=np.float64))
+        return out
+
+    def _compose(self, tree_w: np.ndarray, intra: np.ndarray) -> np.ndarray:
+        h = self.host_of()
+        same = h[:, None] == h[None, :]
+        w = np.where(same, intra, self.ib_hop_cost * tree_w[np.ix_(h, h)])
+        np.fill_diagonal(w, 0.0)
+        return w
+
+    def hop_matrix(self) -> np.ndarray:
+        """(n_gpus, n_gpus): 1 within a node, ``ib_hop_cost`` times the
+        fat-tree hops (2 / 4 / 6) across nodes, 0 on the diagonal."""
+        return self._compose(self.tree().hop_matrix(),
+                             np.ones((self.n_gpus, self.n_gpus)))
+
+    def weight_matrix(self, p_f: np.ndarray | None = None,
+                      straggler: np.ndarray | None = None) -> np.ndarray:
+        """Eq. 1 fault-aware weights at node granularity (class doc)."""
+        if p_f is None and straggler is None:
+            return self.hop_matrix()
+        from .topology import FAULT_PENALTY
+        hp = None if p_f is None else self._per_host(p_f)
+        hs = None if straggler is None else self._per_host(straggler)
+        tree_w = self.tree().weight_matrix(hp, straggler=hs)
+        h = self.host_of()
+        pen = np.zeros(self.n_gpus)
+        if hp is not None:
+            pen += FAULT_PENALTY * (hp[h] > 0)
+        if hs is not None:
+            pen += hs[h]
+        return self._compose(tree_w, 1.0 + pen[:, None] + pen[None, :])
+
+    def coords_array(self) -> np.ndarray:
+        """(n_gpus, 4) coordinates: the node's (pod, edge, host) in the fat
+        tree, then the GPU's slot in its node."""
+        slot = np.arange(self.n_gpus) % GPUS_PER_NODE
+        return np.concatenate([self.tree().coords_array()[self.host_of()],
+                               slot[:, None]], axis=1)
+
+
 @dataclasses.dataclass
 class DeviceAssignment:
     """Result of a placement policy applied to a mesh."""
@@ -146,7 +242,7 @@ class DeviceAssignment:
 
 def assign_devices(
     comm: CommGraph,
-    fabric: Fabric,
+    fabric,
     policy: str = "tofa",
     p_f: np.ndarray | None = None,
     rng: np.random.Generator | None = None,
@@ -162,10 +258,10 @@ def assign_devices(
     ``device`` is where the shared default engine places when no
     ``engine`` is given (``cuda`` when omitted).
     """
-    if comm.n > fabric.n_chips:
+    if comm.n > fabric.n_nodes:
         raise ValueError(
             f"comm graph has {comm.n} shards but fabric has only "
-            f"{fabric.n_chips} chips")
+            f"{fabric.n_nodes} chips")
     # comm.n < n_chips is fine: the job occupies a subset of the fabric
     # (placement[k] is then a chip id, not a permutation of 0..n-1)
     engine = engine if engine is not None else default_engine(device)
@@ -191,7 +287,7 @@ def assign_devices(
 
 def compare_policies(
     comm: CommGraph,
-    fabric: Fabric,
+    fabric,
     policies: Optional[Iterable[str]] = None,
     p_f: np.ndarray | None = None,
     seed: int = 0,

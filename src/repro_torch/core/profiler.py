@@ -18,17 +18,25 @@ intercepting calls — same output, zero runtime overhead:
   the same ``G_v``/``G_m`` matrices the paper's PMPI tool produces — this is
   the guest graph handed to TOFA.
 
-The port keeps this parser as it is: it reads HLO text (from any XLA
-program), and reading the collectives of a PyTorch program is not done
-yet.
+The port keeps this parser as it is (it reads HLO text from any XLA
+program) and adds its counterpart for PyTorch programs:
+:func:`profile_torch` runs one step of a sharded program on fake tensors
+(``FakeTensorMode``: shapes, no storage) and reads the same quantities
+from the operations it dispatches: each functional collective with its
+replica groups over the ``DeviceMesh``, FLOPs and HBM bytes per device,
+the bytes of the plain flash-attention and SSD regions, and the peak of
+live memory.  It returns the same :class:`HloProfile`, so
+:func:`comm_graph_from_profile` and the roofline read either.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from collections import defaultdict
 
 import numpy as np
+import torch
 
 from .comm_graph import CommGraph
 
@@ -541,3 +549,417 @@ def comm_graph_from_profile(profile: HloProfile,
 def comm_graph_from_hlo(hlo_text: str, n_devices: int | None = None
                         ) -> CommGraph:
     return comm_graph_from_profile(profile_hlo(hlo_text), n_devices)
+
+
+# --------------------------------------------------------------------------
+# torch programs: one step read on fake tensors
+# --------------------------------------------------------------------------
+
+# functional collectives (``torch.distributed._functional_collectives``,
+# the ops DTensor issues) -> canonical kind
+_FUNCOL_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-broadcast",
+}
+_FUNCOL_NAMESPACES = ("_c10d_functional", "c10d_functional",
+                      "_c10d_functional_autograd", "_dtensor")
+
+# aten ops with no HBM traffic of their own: allocation, aliasing and
+# bookkeeping (the HLO's _SKIP_BYTES), and the conversions and fills a
+# fusing compiler melts into their neighbours (with every op tagged
+# ``pointwise``: the HLO's _ELEMENTWISE under its fusion model)
+_TORCH_SKIP_BYTES = {
+    "empty", "empty_strided", "empty_like", "new_empty",
+    "new_empty_strided", "detach", "alias", "lift_fresh", "set_",
+    "resize_", "wait_tensor", "_local_scalar_dense", "device",
+}
+_TORCH_ELEMENTWISE = {
+    "_to_copy", "zeros", "zeros_like", "ones", "ones_like", "full",
+    "full_like", "new_zeros", "new_ones", "new_full", "fill", "fill_",
+    "zero_", "arange", "scalar_tensor", "tril", "triu",
+}
+
+
+@dataclasses.dataclass
+class TorchProfile(HloProfile):
+    """An :class:`HloProfile` of one step of a PyTorch program, with its
+    memory: ``arg_bytes``, the storage of the step's arguments on one
+    device (its local shards: parameters, optimizer state, caches, batch),
+    and ``peak_bytes``, the largest sum of live local storages while the
+    step ran, arguments included (the counterpart of XLA's argument +
+    output - alias + temp); ``temp_bytes`` is the difference.  Views
+    share their base's storage and count once."""
+
+    arg_bytes: float = 0.0
+    peak_bytes: float = 0.0
+
+    @property
+    def temp_bytes(self) -> float:
+        return self.peak_bytes - self.arg_bytes
+
+
+def _tensor_bytes(t) -> float:
+    return float(t.numel() * t.element_size())
+
+
+def _local_tensors(obj):
+    """Every tensor reachable from ``obj`` (modules, mappings, sequences,
+    named tuples), a DTensor as its local shard."""
+    from torch import nn
+    if isinstance(obj, nn.Module):
+        yield from (_local(t) for t in (*obj.parameters(), *obj.buffers()))
+    elif isinstance(obj, torch.Tensor):
+        yield _local(obj)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _local_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _local_tensors(v)
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+class _GroupMap:
+    """Process group name -> the replica groups over logical shard ids
+    (positions in the row-major flattening of ``mesh.mesh``), every slice
+    of the mesh along the dims the group spans, as the HLO's iota groups
+    list them.  A rank sees only its own group: the dims are those whose
+    slice through this rank's position holds the group's ranks."""
+
+    def __init__(self, mesh):
+        self.ranks = mesh.mesh.cpu().numpy()
+        me = np.argwhere(self.ranks == torch.distributed.get_rank())
+        if len(me) != 1:
+            raise ValueError("this rank is not in the mesh")
+        self.coord = tuple(int(c) for c in me[0])
+        self.cache: dict = {}
+
+    def groups(self, group_name: str) -> list:
+        if group_name not in self.cache:
+            self.cache[group_name] = self._groups(group_name)
+        return self.cache[group_name]
+
+    def _groups(self, group_name: str) -> list:
+        import itertools
+
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import _resolve_process_group
+        members = set(dist.get_process_group_ranks(
+            _resolve_process_group(group_name)))
+        nd = self.ranks.ndim
+        pos = np.arange(self.ranks.size).reshape(self.ranks.shape)
+        for k in range(1, nd + 1):
+            for dims in itertools.combinations(range(nd), k):
+                idx = tuple(slice(None) if d in dims else self.coord[d]
+                            for d in range(nd))
+                if set(self.ranks[idx].ravel().tolist()) == members:
+                    rest = [d for d in range(nd) if d not in dims]
+                    size = int(np.prod([self.ranks.shape[d] for d in dims]))
+                    arr = pos.transpose(*rest, *dims).reshape(-1, size)
+                    return [tuple(int(x) for x in row) for row in arr]
+        raise ValueError(f"process group {group_name!r} is no slice of the "
+                         f"mesh {self.ranks.tolist()}")
+
+
+def _op_name(func) -> str:
+    return func._schema.name.split("::")[-1]
+
+
+def _collective(func, args, kwargs, groups: _GroupMap):
+    """A :class:`CollectiveOp` for a functional collective, else None."""
+    name = _op_name(func)
+    if func.namespace not in _FUNCOL_NAMESPACES or name not in _FUNCOL_KINDS:
+        return None
+    if groups is None:
+        raise ValueError(f"{func} in a step profiled without a mesh")
+    bound = dict(zip((a.name for a in func._schema.arguments), args))
+    bound.update(kwargs or {})
+    inp = bound.get("input", bound.get("inputs"))
+    tensors = inp if isinstance(inp, (list, tuple)) else [inp]
+    grps = groups.groups(bound["group_name"])
+    return CollectiveOp(kind=_FUNCOL_KINDS[name],
+                        operand_bytes=sum(_tensor_bytes(t) for t in tensors),
+                        groups=grps, group_size=len(grps[0]),
+                        multiplier=1.0)
+
+
+def _charge(func) -> str:
+    """How an operation's HBM bytes count under the HLO profiler's fusion
+    model: ``"none"`` for aliasing and bookkeeping, pointwise operations,
+    conversions and fills, ``"copy"`` for an
+    in-place ``copy_`` (a write into a slice: the HLO's
+    dynamic-update-slice, its source's size read and written),
+    ``"collective"`` for a functional collective (operand and result),
+    else ``"io"``: every input read once and every output written."""
+    name = _op_name(func)
+    if func.namespace in _FUNCOL_NAMESPACES and name in _FUNCOL_KINDS:
+        return "collective"
+    if name in _TORCH_SKIP_BYTES or func.is_view \
+            or torch.Tag.pointwise in func.tags or name in _TORCH_ELEMENTWISE:
+        return "none"
+    return "copy" if name == "copy_" else "io"
+
+
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(x) if isinstance(t, torch.Tensor)]
+
+
+class _Recorder:
+    """What one step dispatches, on one rank: collectives, FLOPs, bytes by
+    tag and live storage."""
+
+    def __init__(self, mesh):
+        self.groups = None if mesh is None else _GroupMap(mesh)
+        self.flops = 0.0
+        self.nbytes = 0.0
+        self.tags: dict = {}
+        self.collectives: list = []
+        self.live = 0.0
+        self.peak = 0.0
+        from torch.utils.weak import WeakIdKeyDictionary
+        self.storages = WeakIdKeyDictionary()
+        self.charges: dict = {}       # operation -> how its bytes count
+
+    def hold(self, t) -> None:
+        """Count ``t``'s storage as live until it is freed."""
+        import weakref
+        st = t.untyped_storage()
+        if st in self.storages:
+            return
+        n = float(st.nbytes())
+        self.storages[st] = n
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, n)
+
+    def _free(self, n: float) -> None:
+        self.live -= n
+
+    def record(self, func, args, kwargs, out) -> None:
+        from torch.utils.flop_counter import flop_registry
+
+        from repro_torch.kernels import PROFILE_TAG_KEY, PROFILE_TAGS
+        charge = self.charges.get(func)
+        if charge is None:
+            charge = self.charges[func] = _charge(func)
+        outs = _tensors(out)
+        b = 0.0
+        if charge == "collective":
+            coll = _collective(func, args, kwargs, self.groups)
+            self.collectives.append(coll)
+            b = coll.operand_bytes + sum(_tensor_bytes(t) for t in outs)
+        else:
+            f = flop_registry.get(func._overloadpacket)
+            if f is not None:
+                self.flops += float(f(*args, **(kwargs or {}), out_val=out))
+            if charge == "copy" and isinstance(args[1], torch.Tensor):
+                b = 2.0 * _tensor_bytes(args[1])
+            elif charge == "io":
+                seen = set()
+                for t in (*_tensors((args, kwargs or {})), *outs):
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        b += _tensor_bytes(t)
+        if b:
+            self.nbytes += b
+            tag = PROFILE_TAGS[-1] if PROFILE_TAGS else None
+            if tag is None:
+                node = torch._C._current_autograd_node()
+                tag = None if node is None else node.metadata.get(
+                    PROFILE_TAG_KEY)
+            if tag is not None:
+                self.tags[tag] = self.tags.get(tag, 0.0) + b
+        for t in outs:
+            self.hold(t)
+
+
+def fake_mode():
+    """A ``FakeTensorMode`` that :func:`profile_torch` can record a step
+    in: build the program's model, state and inputs under it (``with
+    fake_mode() as mode:``), then profile the step.  Nothing is
+    allocated; every tensor made under it is a fake one (shape, dtype,
+    device) and every operation only computes its output's metadata."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    class RecordingFakeMode(FakeTensorMode):
+        recorder = None
+        depth = 0        # local operations being dispatched now
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if self.recorder is None or any(issubclass(t, DTensor)
+                                            for t in types):
+                return super().__torch_dispatch__(func, types, args, kwargs)
+            # a decomposition's operations, dispatched inside their
+            # operation's, are that operation's work: recorded once
+            self.depth += 1
+            try:
+                out = super().__torch_dispatch__(func, types, args, kwargs)
+            finally:
+                self.depth -= 1
+            if self.depth == 0 and out is not NotImplemented:
+                self.recorder.record(func, args, kwargs, out)
+            return out
+
+    return RecordingFakeMode()
+
+
+@contextlib.contextmanager
+def _resharding_all_to_all():
+    """DTensor moves a shard to another tensor dim with an all-to-all on
+    an nccl group, but on a CPU mesh it falls back to an all-gather and a
+    chunk (gloo has no all-to-all).  Within this context a CPU mesh takes
+    the nccl route too (the mesh reads as a CUDA one for that call only):
+    the trace then reads the collective the step runs on the card."""
+    from torch.distributed.tensor import placement_types
+    run = placement_types.shard_dim_alltoall
+
+    def all_to_all(input, gather_dim, shard_dim, mesh, mesh_dim):
+        if mesh.device_type != "cpu":
+            return run(input, gather_dim, shard_dim, mesh, mesh_dim)
+        # a property over _device_type in some releases, a field in others
+        field = ("_device_type" if isinstance(
+            getattr(type(mesh), "device_type", None), property)
+            else "device_type")
+        setattr(mesh, field, "cuda")
+        try:
+            return run(input, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            setattr(mesh, field, "cpu")
+
+    placement_types.shard_dim_alltoall = all_to_all
+    try:
+        yield
+    finally:
+        placement_types.shard_dim_alltoall = run
+
+
+@contextlib.contextmanager
+def _dtensor_planning_unrecorded(mode):
+    """DTensor's planning, kept out of the step it plans:
+
+    * deriving an operation's global output shape, it runs the operation
+      on fake tensors of the global shape, in the active fake mode, once
+      per operation and input layout: nothing is recorded meanwhile;
+    * a strided shard's offsets it computes from a ``torch.arange`` read
+      back with ``tolist()``, which a fake tensor cannot do: those index
+      tensors are made as real ones (a few integers)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+    prop = DTensor._op_dispatcher.sharding_propagator
+    run = prop._propagate_tensor_meta_non_cached
+    offsets = getattr(_StridedShard, "local_shard_size_and_offset", None)
+
+    def quiet(op_schema):
+        rec, mode.recorder = mode.recorder, None
+        try:
+            return run(op_schema)
+        finally:
+            mode.recorder = rec
+
+    def real_offsets(*args, **kwargs):
+        with unset_fake_temporarily():
+            return offsets(*args, **kwargs)
+
+    prop._propagate_tensor_meta_non_cached = quiet
+    if offsets is not None:
+        _StridedShard.local_shard_size_and_offset = real_offsets
+    try:
+        yield
+    finally:
+        del prop._propagate_tensor_meta_non_cached
+        if offsets is not None:
+            _StridedShard.local_shard_size_and_offset = offsets
+
+
+def profile_torch(fn, *args, mesh=None,
+                  reshard_all_to_all: bool = True) -> TorchProfile:
+    """Run ``fn(*args)`` once, under the fake mode its tensors were made
+    in (:func:`fake_mode`), and read the step as :func:`profile_hlo`
+    reads a compiled one, per device (this rank's local shards):
+
+    * every functional collective (``c10d_functional`` /
+      ``_c10d_functional``: all-reduce, all-gather, reduce-scatter,
+      all-to-all, broadcast) with its per-rank operand bytes, its process
+      group mapped to the mesh dims it spans and expanded to every replica
+      group of ``mesh`` along them (logical shard ids: positions in
+      ``mesh.mesh``); ``num_partitions`` is ``mesh.size()`` (1 for a step
+      without a mesh, which may run no collective);
+    * FLOPs by ``torch.utils.flop_counter``'s formulas on the local
+      operations (eager tracing runs every layer and every recompute:
+      no loop correction);
+    * HBM bytes: each local non-view operation's inputs and outputs, with
+      the fusion model of :func:`profile_hlo` (pointwise operations,
+      conversions and fills add no traffic of their own);
+      the bytes of the plain flash-attention and SSD versions, forward
+      and backward, go to ``bytes_by_tag["flash"]`` / ``["ssd"]``;
+    * memory: see :class:`TorchProfile`.
+
+    Operations on DTensors are read through the local operations they
+    run.  ``reshard_all_to_all`` reads a CPU mesh's step as it runs on an
+    nccl group, where DTensor moves a shard between tensor dims with an
+    all-to-all (gloo's fallback is an all-gather and a chunk)."""
+    from torch._guards import detect_fake_mode
+
+    from repro_torch import kernels
+    mode = detect_fake_mode(tuple(_local_tensors(args)))
+    if mode is None or not hasattr(mode, "recorder"):
+        raise TypeError("profile_torch reads a step on fake tensors: make "
+                        "its model, state and inputs under fake_mode()")
+    rec = _Recorder(mesh)
+    for t in _local_tensors(args):
+        rec.hold(t)
+    arg_bytes = rec.live
+    mode.recorder, kernels.PROFILING[0] = rec, True
+    try:
+        with mode, _dtensor_planning_unrecorded(mode), \
+                (_resharding_all_to_all() if reshard_all_to_all
+                 else contextlib.nullcontext()):
+            fn(*args)
+    finally:
+        mode.recorder, kernels.PROFILING[0] = None, False
+    return TorchProfile(flops=rec.flops, bytes_accessed=rec.nbytes,
+                        collectives=rec.collectives,
+                        num_partitions=1 if mesh is None
+                        else int(mesh.size()), raw_flops=rec.flops,
+                        bytes_by_tag=rec.tags, arg_bytes=arg_bytes,
+                        peak_bytes=rec.peak)
+
+
+def record_collectives(fn, *args, mesh) -> list:
+    """The collectives of ``fn(*args)`` run for real (on the process group
+    of ``mesh``, no fake tensors), as :func:`profile_torch` lists them:
+    the same step on fake tensors must give the same list."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    groups, found = _GroupMap(mesh), []
+
+    class Listen(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                # DTensor runs first and issues its collectives as local
+                # operations, which come back through this mode
+                return NotImplemented
+            c = _collective(func, args, kwargs, groups)
+            if c is not None:
+                found.append(c)
+            return func(*args, **(kwargs or {}))
+
+    with Listen():
+        fn(*args)
+    return found

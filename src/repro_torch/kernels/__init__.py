@@ -52,6 +52,49 @@ def reset_launches() -> None:
         SHAPE_COUNTS[name].clear()
 
 
+# The profile tags of the plain-version regions running now, innermost
+# last, and whether a step is being profiled: while
+# ``repro_torch.core.profiler.profile_torch`` records a step it charges the
+# bytes of each operation to the innermost tag (the reference's profiler
+# reads the same tags from the HLO's op names).
+PROFILE_TAGS: list = []
+PROFILING = [False]
+# the key of an autograd node's metadata that carries its tag
+PROFILE_TAG_KEY = "repro_profile_tag"
+
+
+def tagged(tag: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` (a kernel's plain version) as the profile
+    region ``tag``.  While a step is profiled, the autograd nodes from the
+    result back to ``args`` carry the tag too, so that the backward's
+    operations are charged to it.  What ``fn`` computes is unchanged."""
+    PROFILE_TAGS.append(tag)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        PROFILE_TAGS.pop()
+    if PROFILING[0] and torch.is_grad_enabled():
+        _tag_graph(tag, out, args)
+    return out
+
+
+def _tag_graph(tag: str, out, inputs) -> None:
+    """Tag every autograd node between ``out`` and ``inputs``."""
+    stop = {t.grad_fn for t in inputs
+            if isinstance(t, torch.Tensor) and t.grad_fn is not None}
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    todo = [t.grad_fn for t in outs if isinstance(t, torch.Tensor)]
+    seen = set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in stop or node in seen \
+                or node.name().endswith("AccumulateGrad"):
+            continue
+        seen.add(node)
+        node.metadata[PROFILE_TAG_KEY] = tag
+        todo.extend(n for n, _ in node.next_functions)
+
+
 def use_kernel(impl: str, t: torch.Tensor) -> bool:
     """Resolve ``impl`` for a tensor: True = CUDA kernel, False = plain."""
     if impl == "auto":

@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from .. import _build, count_launch, launch, use_kernel
+from .. import _build, count_launch, launch, tagged, use_kernel
 from .ref import flash_attention_ref
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -58,7 +58,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype; GQA when Hkv divides H; causal masking end-aligned (query i
     sees keys j <= i + Sk - Sq)."""
     if not use_kernel(impl, q):
-        return flash_attention_ref(q, k, v, causal=causal)
+        return tagged("flash", flash_attention_ref, q, k, v, causal=causal)
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, H, Sq, Dh) and k, v (B, Hkv, Sk, "
                          f"Dh), got {tuple(q.shape)}, {tuple(k.shape)}, "

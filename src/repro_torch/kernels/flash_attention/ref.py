@@ -53,12 +53,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(Dh)
     dev = q.device
 
-    def q_step(qc, qpos):
-        """The output of one block of queries over every key block."""
+    def q_step(qc, qpos, n_blocks: int):
+        """The output of one block of queries over its first ``n_blocks``
+        key blocks."""
         acc = torch.zeros_like(qc)
         m = torch.full(qc.shape[:3], NEG_INF, dtype=work, device=dev)
         l = torch.zeros(qc.shape[:3], dtype=work, device=dev)
-        for kj in range(nk):
+        for kj in range(n_blocks):
             kc = k[:, :, kj * kv_block:(kj + 1) * kv_block]
             vc = v[:, :, kj * kv_block:(kj + 1) * kv_block]
             s = torch.einsum("bhqd,bhkd->bhqk", qc, kc) * scale
@@ -84,7 +85,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blocks = []
     for qi in range(nq):
         qc = q[:, :, qi * q_block:(qi + 1) * q_block]
-        qpos = qi * q_block + torch.arange(q_block, device=dev) + offset
-        blocks.append(checkpoint(q_step, qc, qpos, use_reentrant=False)
-                      if keep else q_step(qc, qpos))
+        first = qi * q_block + offset
+        qpos = first + torch.arange(q_block, device=dev)
+        # causal, with every query of the block seeing key 0: a key block
+        # past the block's last query is masked whole and would leave m,
+        # l and acc exactly as they are (p = 0, corr = 1), so it is not
+        # visited; a query that sees no key keeps the visited-block
+        # convention, every block visited
+        n_blocks = nk
+        if causal and first >= 0:
+            n_blocks = min(nk, (first + q_block - 1) // kv_block + 1)
+        blocks.append(checkpoint(q_step, qc, qpos, n_blocks,
+                                 use_reentrant=False)
+                      if keep else q_step(qc, qpos, n_blocks))
     return torch.cat(blocks, dim=2)[:, :, :Sq].to(dtype)

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from .. import _build, count_launch, launch, use_kernel
+from .. import _build, count_launch, launch, tagged, use_kernel
 from .ref import ssd_chunked_folded
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -93,7 +93,7 @@ def ssd_scan_kernel(xdt: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     runs :func:`~repro_torch.kernels.ssd_scan.ref.ssd_chunked_folded`."""
     chunk = min(chunk, xdt.shape[2])
     if not use_kernel(impl, xdt):
-        return ssd_chunked_folded(xdt, dA, B, C, chunk)
+        return tagged("ssd", ssd_chunked_folded, xdt, dA, B, C, chunk)
     _check(xdt, dA, B, C, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xdt, dA, B, C)):

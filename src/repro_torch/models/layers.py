@@ -67,6 +67,16 @@ def init_(t: torch.Tensor, d: ParamDef,
     return t.normal_(0.0, d.scale, generator=generator)
 
 
+def abstract_params(schema: dict, dtype: torch.dtype = torch.bfloat16
+                    ) -> dict:
+    """The schema's tree with each ``ParamDef`` as a tensor of its shape
+    in ``dtype`` on the ``meta`` device: what the dry run sizes, with no
+    storage (the reference's ``ShapeDtypeStruct`` tree)."""
+    return {k: abstract_params(d, dtype) if isinstance(d, dict)
+            else torch.empty(d.shape, dtype=dtype, device="meta")
+            for k, d in schema.items()}
+
+
 # --------------------------------------------------------------------------
 # norms / activations / rope
 # --------------------------------------------------------------------------
@@ -132,6 +142,26 @@ def _flash(q, k, v, impl: str, ctx: ShardingCtx):
     return ctx.kernel_map(fn, (spec, spec, spec), spec, q, k, v)
 
 
+def _proj(eq: str, x: torch.Tensor, w: torch.Tensor,
+          ctx: ShardingCtx) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` of an activation ``x`` (batch first)
+    and a weight ``w`` with a heads dim (``h`` in ``eq``).  On a mesh
+    whose rules leave that dim unsharded (its size does not divide the
+    axis), each rank runs the einsum on its own batch rows with the
+    weight gathered whole (``kernel_map``; the weight's gradient is a
+    partial sum over the batch axes), as the reference's GSPMD does:
+    DTensor's own einsum may shard the flattened heads x head-dim product
+    over the free axis and then cannot unflatten it."""
+    if not is_dtensor(w):
+        return torch.einsum(eq, x, w)
+    h = eq.split("->")[0].split(",")[1].index("h")
+    if any(getattr(pl, "dim", None) == h for pl in w.placements):
+        return torch.einsum(eq, x, w)
+    spec = (ctx.batch_entry(x.shape[0]),)
+    return ctx.kernel_map(functools.partial(torch.einsum, eq), (spec, ()),
+                          spec, x, w, partial=((), ctx.spec_axes(spec)))
+
+
 def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
                   cache: Optional[tuple] = None, cache_pos: int = 0,
                   causal: bool = True,
@@ -160,17 +190,17 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
             and "model" in ctx.shape:
         return flash_decode_gqa(p, x, cache, cache_pos, n_heads=n_heads,
                                 cos=cos, sin=sin, ctx=ctx)
-    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+    q = _proj("bsd,dhk->bhsk", x, p.wq, ctx)
     if kv_override is None:
-        k = torch.einsum("bsd,dhk->bhsk", x, p.wk)
-        v = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+        k = _proj("bsd,dhk->bhsk", x, p.wk, ctx)
+        v = _proj("bsd,dhk->bhsk", x, p.wv, ctx)
         if cos is not None:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
     else:
         src = kv_override[0]
-        k = torch.einsum("bsd,dhk->bhsk", src, p.wk)
-        v = torch.einsum("bsd,dhk->bhsk", src, p.wv)
+        k = _proj("bsd,dhk->bhsk", src, p.wk, ctx)
+        v = _proj("bsd,dhk->bhsk", src, p.wv, ctx)
         causal = False
 
     new_cache = None
@@ -186,7 +216,7 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
             and S >= FLASH_MIN_SEQ:
         # long-context prefill/train: O(S*block) online-softmax attention
         out = _flash(q, k, v, impl, ctx)
-        return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
+        return _proj("bhsk,hkd->bsd", out, p.wo, ctx), None
 
     groups = n_heads // max(k.shape[1], 1)
     if groups > 1:
@@ -205,7 +235,7 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
         scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhst,bhtk->bhsk", probs, v)
-    return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+    return _proj("bhsk,hkd->bsd", out, p.wo, ctx), new_cache
 
 
 def write_cache(cache: torch.Tensor, new: torch.Tensor, pos: int,
@@ -255,9 +285,9 @@ def flash_decode_gqa(p, x: torch.Tensor, cache: tuple, cache_pos: int, *,
     S_max, Dh) placed by ``("batch", "cache_heads", "cache_seq")``."""
     from torch.distributed.tensor import DTensor
     B, S1, D = x.shape
-    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
-    k_new = torch.einsum("bsd,dhk->bhsk", x, p.wk)
-    v_new = torch.einsum("bsd,dhk->bhsk", x, p.wv)
+    q = _proj("bsd,dhk->bhsk", x, p.wq, ctx)
+    k_new = _proj("bsd,dhk->bhsk", x, p.wk, ctx)
+    v_new = _proj("bsd,dhk->bhsk", x, p.wv, ctx)
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k_new = apply_rope(k_new, cos, sin)
@@ -297,7 +327,7 @@ def flash_decode_gqa(p, x: torch.Tensor, cache: tuple, cache_pos: int, *,
     out = num / torch.clamp(den, min=1e-30)[..., None].to(num.dtype)
     out = out.reshape(Bl, H, S1, Dh).to(q_.dtype)
     out = DTensor.from_local(out, ctx.mesh, q_pl, run_check=False)
-    return torch.einsum("bhsk,hkd->bsd", out, p.wo), (ck, cv)
+    return _proj("bhsk,hkd->bsd", out, p.wo, ctx), (ck, cv)
 
 
 def cross_attention(p, x: torch.Tensor, k: torch.Tensor,
@@ -372,9 +402,9 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
     B, S, D = x.shape
     nope, lora = mla.qk_nope_head_dim, mla.kv_lora_rank
     if getattr(p, "w_dq", None) is not None:
-        q = torch.einsum("bsr,rhk->bhsk", x @ p.w_dq, p.w_uq)
+        q = _proj("bsr,rhk->bhsk", x @ p.w_dq, p.w_uq, ctx)
     else:
-        q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
+        q = _proj("bsd,dhk->bhsk", x, p.wq, ctx)
     q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
 
     ckv = x @ p.w_dkv                                   # (B, S, lora+rope)
@@ -388,8 +418,8 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
 
     if cache is None and causal and S >= FLASH_MIN_SEQ:
         # prefill: expand per-head K/V (naive MLA form) + flash attention
-        k_nope = torch.einsum("btr,rhk->bhtk", c_lat, p.w_uk)
-        v = torch.einsum("btr,rhk->bhtk", c_lat, p.w_uv)
+        k_nope = _proj("btr,rhk->bhtk", c_lat, p.w_uk, ctx)
+        v = _proj("btr,rhk->bhtk", c_lat, p.w_uv, ctx)
         kr = k_rope[:, None].expand(-1, k_nope.shape[1], -1, -1)
         k_full = torch.cat([k_nope, kr], dim=-1)
         q_full = torch.cat([q_nope, q_rope], dim=-1)
@@ -398,10 +428,10 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
         v_p = F.pad(v, (0, pad)) if pad else v
         out = _flash(q_full, k_full, v_p, impl, ctx)
         out = out[..., :mla.v_head_dim]
-        return torch.einsum("bhsk,hkd->bsd", out, p.wo), None
+        return _proj("bhsk,hkd->bsd", out, p.wo, ctx), None
 
     # absorbed: q' = q_nope @ W_uk -> latent space
-    q_lat = torch.einsum("bhsk,rhk->bhsr", q_nope, p.w_uk)
+    q_lat = _proj("bhsk,rhk->bhsr", q_nope, p.w_uk, ctx)
     scores = torch.einsum("bhsr,btr->bhst", q_lat, c_lat) \
         + torch.einsum("bhsk,btk->bhst", q_rope, k_rope)
     scores = scores.float() * (1.0 / math.sqrt(nope + mla.qk_rope_head_dim))
@@ -413,9 +443,9 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
         scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     # out = probs @ (c_lat @ W_uv): absorb into latent, then lift per head
-    ctx = torch.einsum("bhst,btr->bhsr", probs, c_lat)
-    out = torch.einsum("bhsr,rhk->bhsk", ctx, p.w_uv)
-    return torch.einsum("bhsk,hkd->bsd", out, p.wo), new_cache
+    lat = torch.einsum("bhst,btr->bhsr", probs, c_lat)
+    out = _proj("bhsr,rhk->bhsk", lat, p.w_uv, ctx)
+    return _proj("bhsk,hkd->bsd", out, p.wo, ctx), new_cache
 
 
 # --------------------------------------------------------------------------

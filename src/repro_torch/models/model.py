@@ -284,11 +284,12 @@ class CrossBlock(DenseBlock):
     no rope, no mask, the plain softmax), or, in decode, from the frozen
     cross cache ``cross_kv``: ``(k, v)``, each (B, Hkv, S_src, Dh)."""
 
-    def forward(self, h, cfg: ModelConfig, src=None, *, cross_kv=None):
+    def forward(self, h, cfg: ModelConfig, src=None, *, cross_kv=None,
+                ctx: ShardingCtx = NULL_CTX):
         x = rmsnorm(h, self.ln1)
         if cross_kv is None:
             a, _ = gqa_attention(self, x, None, None, n_heads=cfg.n_heads,
-                                 kv_override=(src,))
+                                 kv_override=(src,), ctx=ctx)
         else:
             a = cross_attention(self, x, *cross_kv)
         h = h + a
@@ -319,7 +320,8 @@ class DecoderBlock(Leaves):
         x = rmsnorm(h, self.ln2)
         if cross_kv is None:
             a, _ = gqa_attention(self.cross, x, None, None,
-                                 n_heads=cfg.n_heads, kv_override=(enc,))
+                                 n_heads=cfg.n_heads, kv_override=(enc,),
+                                 ctx=ctx)
         else:
             a = cross_attention(self.cross, x, *cross_kv)
         h = h + a
@@ -501,7 +503,7 @@ class Transformer(nn.Module):
             for g in range(G):
                 for blk in self.blocks[g * k:(g + 1) * k]:
                     h, _ = run(blk, h, cfg, cos, sin, impl=impl, ctx=ctx)
-                h = run(self.cross[g], h, cfg, vis)
+                h = run(self.cross[g], h, cfg, vis, ctx=ctx)
             return self.logits(h, ctx)
         if cfg.family == "encdec":
             enc = self.encode(enc_embed, ctx)

@@ -80,13 +80,29 @@ def route(logits: torch.Tensor, top_k: int):
     return top_p, top_i
 
 
-def _sort_by_expert(xf: torch.Tensor, ids: torch.Tensor, n_experts: int):
+def _sort_by_expert(xf: torch.Tensor, ids: torch.Tensor, n_experts: int,
+                    routed: int | None = None):
     """The (T, k) choices flattened and stably sorted by expert: (the rows
     of ``xf`` in that order (T*k, D), the sort order, each expert's first
-    row in the sorted order (E + 1,), on the device)."""
+    row in the sorted order (E + 1,), on the device).
+
+    Fake ids (a dry run traces without data:
+    :mod:`repro_torch.launch.dryrun`) have no order: their offsets are
+    then even shares of ``routed`` rows (by default all T*k), those
+    balanced routing sends to the E experts, as a tensor on the host, so
+    that the grouped product does the operations of the reference's
+    ``ragged_dot`` over them."""
+    from torch._subclasses.fake_tensor import (is_fake,
+                                               unset_fake_temporarily)
     flat_e = ids.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     xs = xf[order // ids.shape[1]]              # token of each choice
+    if is_fake(ids):
+        rows = flat_e.shape[0] if routed is None else routed
+        with unset_fake_temporarily():
+            offsets = torch.tensor([rows * e // n_experts
+                                    for e in range(n_experts + 1)])
+        return xs, order, offsets
     offsets = torch.searchsorted(
         flat_e[order], torch.arange(n_experts + 1, device=ids.device))
     return xs, order, offsets
@@ -238,7 +254,7 @@ class _SumOverGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, group):
         from torch.distributed import _functional_collectives as funcol
-        return funcol.all_reduce(t, "sum", group).wait()
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
 
     @staticmethod
     def backward(ctx, grad):
@@ -272,7 +288,8 @@ def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig, group) -> torch.Tensor:
     local = (ids >= lo) & (ids < lo + e_local)
     # non-local choices sort into the trash group (id e_local)
     e_l = torch.where(local, ids - lo, e_local)
-    xs, order, offsets = _sort_by_expert(xf, e_l, e_local)
+    xs, order, offsets = _sort_by_expert(xf, e_l, e_local,
+                                         T * k // n_shards)
     host = _host_offsets(offsets)
     ys_sorted = _expert_mlp_sorted(xs, host, p, cfg.act)
     # rows past the real groups (trash) stay zero
@@ -331,7 +348,8 @@ def moe_ffn_a2a(p, x: torch.Tensor, cfg: ModelConfig, group
     recv = funcol.all_to_all_single(send, None, None, group)
     recv_e = torch.empty_like(send_e)
     dist.all_to_all_single(recv_e, send_e, group=group)
-    xs, order, offsets = _sort_by_expert(recv, recv_e[:, None], e_local)
+    xs, order, offsets = _sort_by_expert(recv, recv_e[:, None], e_local,
+                                         min(T * k, n_shards * cap))
     host = _host_offsets(offsets)
     ys_sorted = _expert_mlp_sorted(xs, host, p, cfg.act)
     ys = ys_sorted.new_zeros((n_shards * cap, D))      # trash rows zero

@@ -12,7 +12,8 @@ shards from) are equal:
   vlm      self KV + frozen cross K/V over the vision tokens
 
 :func:`cache_schema` covers every family (shape arithmetic only);
-:func:`init_cache` allocates the caches the port can decode with: the
+:func:`abstract_cache` gives its shapes and dtypes without storage (the
+dry run's); :func:`init_cache` allocates the caches the port can decode with: the
 dense and MoE families (GQA or MLA), the SSM, hybrid, VLM and
 encoder-decoder families.
 """
@@ -127,5 +128,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return {grp: {name: ctx.place(torch.zeros(d.shape,
                                               dtype=d.dtype or dtype,
                                               device=dev), d.axes)
+                  for name, d in leaves.items()}
+            for grp, leaves in sch.items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   src_len: int | None = None) -> dict:
+    """The cache tree of :func:`cache_schema` as tensors on the ``meta``
+    device, in ``dtype`` except where the schema pins one: the dry run's
+    stand-ins (the reference's ``ShapeDtypeStruct`` tree), no storage."""
+    sch = cache_schema(cfg, batch, max_seq, src_len=src_len)
+    return {grp: {name: torch.empty(d.shape, dtype=d.dtype or dtype,
+                                    device="meta")
                   for name, d in leaves.items()}
             for grp, leaves in sch.items()}

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.backend import resolve_device
 
 
@@ -47,20 +47,39 @@ class SyntheticDataset:
                 "labels": torch.from_numpy(toks[:, 1:].copy())}
 
 
+def _frontend_shapes(cfg: ModelConfig, batch_size: int,
+                     seq_len: int | None) -> dict:
+    """Name -> shape of the frontend stubs an arch's batch carries."""
+    out = {}
+    if cfg.family == "vlm":
+        out["vision_embed"] = (batch_size, cfg.n_vision_tokens, cfg.d_model)
+    if cfg.family == "encdec":
+        # speech frames scale with the text length when not pinned
+        src = cfg.n_audio_frames or seq_len or 512
+        out["enc_embed"] = (batch_size, src, cfg.d_model)
+    return out
+
+
 def extra_inputs(cfg: ModelConfig, batch_size: int,
                  dtype: torch.dtype = torch.float32,
                  seq_len: int | None = None, device="cuda") -> dict:
     """Modality-frontend STUBS (assignment): precomputed patch / frame
     embeddings for [vlm] / [audio] archs, zeros on ``device``."""
-    out = {}
-    if cfg.family == "vlm":
-        shp = (batch_size, cfg.n_vision_tokens, cfg.d_model)
-        out["vision_embed"] = torch.zeros(shp, dtype=dtype,
-                                          device=resolve_device(device))
-    if cfg.family == "encdec":
-        # speech frames scale with the text length when not pinned
-        src = cfg.n_audio_frames or seq_len or 512
-        shp = (batch_size, src, cfg.d_model)
-        out["enc_embed"] = torch.zeros(shp, dtype=dtype,
-                                       device=resolve_device(device))
-    return out
+    return {k: torch.zeros(shp, dtype=dtype, device=resolve_device(device))
+            for k, shp in _frontend_shapes(cfg, batch_size, seq_len).items()}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Stand-ins for one (arch x shape) dry-run cell's batch, tensors on
+    the ``meta`` device (no storage): ``tokens`` (B, S) int32, ``labels``
+    for a train cell, and the frontend stubs of :func:`extra_inputs` in
+    ``dtype`` (decode cells add caches: ``serve.kvcache.abstract_cache``)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    batch = {"tokens": torch.empty((B, S), dtype=torch.int32, device=meta)}
+    if shape.kind == "train":
+        batch["labels"] = torch.empty((B, S), dtype=torch.int32, device=meta)
+    batch.update({k: torch.empty(shp, dtype=dtype, device=meta)
+                  for k, shp in _frontend_shapes(cfg, B, S).items()})
+    return batch

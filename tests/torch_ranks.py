@@ -1,6 +1,8 @@
-"""Run a function on several ``gloo`` ranks of the torch port, on the CPU.
+"""Run a function on several ``gloo`` ranks of the torch port, on the CPU,
+or in a process of its own.
 
     results = run_ranks("test_torch_parallel", "job", 4, tmp_path, seconds=240)
+    result = run_alone("test_torch_launch", "job", tmp_path, seconds=240)
 
 Each rank is a spawned process (never the pytest worker itself) that
 imports ``module``, starts a process group of ``world`` ranks through a
@@ -19,6 +21,8 @@ import pickle
 import sys
 import time
 import traceback
+import json
+import subprocess
 from datetime import timedelta
 from pathlib import Path
 
@@ -91,3 +95,23 @@ def run_ranks(module: str, name: str, world: int, tmp_path: Path, *,
         raise AssertionError(f"ranks {hung} still ran after {seconds} s; "
                              f"killed")
     return results
+
+
+def run_alone(module: str, name: str, tmp_path: Path, *, seconds: float):
+    """``module.<name>(out)`` in a fresh Python process (for state that is
+    process-wide: a fake process group), which writes JSON to the path
+    ``out``; returns it.  The child sees the port and the reference on
+    its path; it fails the test with its output's tail when it fails, and
+    is killed after ``seconds``."""
+    root = Path(__file__).resolve().parents[1]
+    out = Path(tmp_path) / f"{name}.json"
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": os.pathsep.join(
+        [str(root / "src"), str(root / "tests")])}
+    r = subprocess.run(
+        [sys.executable, "-c",
+         f"import {module} as m; m.{name}({str(out)!r})"],
+        capture_output=True, text=True, env=env, cwd=root, timeout=seconds)
+    if r.returncode != 0:
+        raise AssertionError(f"{module}.{name} failed:\n"
+                             f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+    return json.loads(out.read_text())
