@@ -167,7 +167,10 @@ toolkit.  The script
    and deepseek-v2-lite-16b x decode_32k (2 x 16 x 16), each in a process
    of its own (its fake process group of 256 or 512 ranks is
    process-wide) with the placement analysis on the card, each row printed
-   with the launches of each placement kernel in it; TOFA on each cell's
+   with the launches of each placement kernel in it, and the train
+   cell's ``total_bytes_per_dev`` beside the card's name and power limit
+   (it must fit the card: the cross entropy runs on each rank's vocab
+   shard); TOFA on each cell's
    guest graph on the H100 fabric, on the card at float64, held bit for
    bit to the NumPy engine's placement; and, at world size 1 on an nccl
    group, ``make_tofa_mesh`` on a profile of the smollm-135m step and one
@@ -3784,10 +3787,14 @@ def dryrun_cells(device: str) -> list:
         ok = (rc == 0 and row.get("ok") is True
               and {"linear", "tofa"} <= set(place)
               and row.get("devices") in (256, 512))
-        emit({"phase": f"dryrun/{arch}/{shape}", "card": card(), "rc": rc,
-              "s": time.perf_counter() - t0,
-              "launches": row.get("placement_launches"), "row": row,
-              "ok": ok})
+        rec = {"phase": f"dryrun/{arch}/{shape}", "card": card(), "rc": rc,
+               "s": time.perf_counter() - t0,
+               "launches": row.get("placement_launches"), "row": row}
+        if shape == "train_4k":             # the step must fit a card
+            ok = ok and row.get("fits_hbm") is True
+            rec.update(total_bytes_per_dev=row.get("total_bytes_per_dev"),
+                       fits_hbm=row.get("fits_hbm"))
+        emit({**rec, "ok": ok})
         if not ok:
             bad.append(f"{arch}/{shape}")
     if bad:

@@ -748,6 +748,17 @@ class _Recorder:
     def _free(self, n: float) -> None:
         self.live -= n
 
+    def alias(self, t, base) -> None:
+        """Count ``t``, which the real operation returns as ``base``
+        itself, as ``base``'s storage: once, and live while either is."""
+        import weakref
+        st, held = t.untyped_storage(), base.untyped_storage()
+        if held not in self.storages:
+            return self.hold(t)
+        if st is not held and st not in self.storages:
+            self.storages[st] = 0.0
+            weakref.finalize(st, lambda keep: None, held)
+
     def record(self, func, args, kwargs, out) -> None:
         from torch.utils.flop_counter import flop_registry
 
@@ -782,6 +793,11 @@ class _Recorder:
                     PROFILE_TAG_KEY)
             if tag is not None:
                 self.tags[tag] = self.tags.get(tag, 0.0) + b
+        if func.namespace in _FUNCOL_NAMESPACES \
+                and _op_name(func) == "wait_tensor":
+            # the real op returns its input; a fake one makes new storage
+            self.alias(outs[0], args[0])
+            return
         for t in outs:
             self.hold(t)
 

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
+from repro_torch.parallel.sharding import (NULL_CTX, ShardingCtx,
+                                           SumOverGroup, is_dtensor)
 
 # sequences at or above this length use the flash (online-softmax) attention
 # path: O(S * block) memory instead of the O(S^2) score matrix
@@ -466,10 +467,44 @@ def mlp_schema(cfg: ModelConfig, layers: int, d_ff: int | None = None) -> dict:
     return sch
 
 
-def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    h = x @ p.w_up
+def mlp(p, x: torch.Tensor, act: str,
+        ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+    """The MLP, ``act(x @ w_up) @ w_down`` (the GLU form with ``w_gate``).
+
+    On a mesh each rank runs it on its own tokens (``kernel_map``), with
+    the weights gathered over their embed dim (FSDP's gather) and split
+    over the ``"mlp"`` rule's axes as they are placed; the partial outputs
+    are then summed over those axes, as the reference's GSPMD runs it.
+    DTensor's own plan for the products may split the embed dim instead
+    and make every rank compute activations of the global batch."""
+    if not is_dtensor(p.w_up):
+        return _mlp(x, p.w_up, p.w_down, p.w_gate, act=act)
+    f_spec = ctx.spec_for(("mlp",), (p.w_up.shape[-1],))
+    groups = [ctx.group(a) for a in ctx.spec_axes(f_spec)
+              if ctx.shape[a] > 1]
+    x_spec = (ctx.batch_entry(x.shape[0]),)
+    ws, specs = [p.w_up, p.w_down], [(None, *f_spec), f_spec]
     if p.w_gate is not None:
-        h = h * act_fn(act)(x @ p.w_gate)
+        ws.append(p.w_gate)
+        specs.append((None, *f_spec))
+
+    def local(x, w_up, w_down, w_gate=None):
+        y = _mlp(x, w_up, w_down, w_gate, act=act)
+        for g in groups:
+            y = SumOverGroup.apply(y, g)
+        return y
+
+    # x's gradient is partial over the mlp axes, the weights' over the
+    # token axes
+    partial = (ctx.spec_axes(f_spec), *[ctx.spec_axes(x_spec)] * len(ws))
+    return ctx.kernel_map(local, (x_spec, *specs), x_spec, x, *ws,
+                          partial=partial)
+
+
+def _mlp(x, w_up, w_down, w_gate=None, *, act: str) -> torch.Tensor:
+    h = x @ w_up
+    if w_gate is not None:
+        h = h * act_fn(act)(x @ w_gate)
     else:
         h = act_fn(act)(h)
-    return h @ p.w_down
+    return h @ w_down

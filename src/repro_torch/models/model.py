@@ -257,7 +257,7 @@ class DenseBlock(Leaves):
                                   impl=impl, ctx=ctx)
         h = h + a
         x = rmsnorm(h, self.ln2)
-        h = h + (mlp(self, x, cfg.act) if self.router is None
+        h = h + (mlp(self, x, cfg.act, ctx) if self.router is None
                  else moe_ffn(self, x, cfg, ctx))
         h = ctx.constrain(h, "batch", "seq", "act_embed")
         return h, kc
@@ -293,7 +293,7 @@ class CrossBlock(DenseBlock):
         else:
             a = cross_attention(self, x, *cross_kv)
         h = h + a
-        return h + mlp(self, rmsnorm(h, self.ln2), cfg.act)
+        return h + mlp(self, rmsnorm(h, self.ln2), cfg.act, ctx)
 
 
 class DecoderBlock(Leaves):
@@ -325,7 +325,7 @@ class DecoderBlock(Leaves):
         else:
             a = cross_attention(self.cross, x, *cross_kv)
         h = h + a
-        return h + mlp(self, rmsnorm(h, self.ln3), cfg.act), kc
+        return h + mlp(self, rmsnorm(h, self.ln3), cfg.act, ctx), kc
 
 
 class MambaBlock(Leaves):
@@ -425,7 +425,20 @@ class Transformer(nn.Module):
                ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
         h = rmsnorm(h, self.final_norm)
         unembed = self.tok_emb if self.unembed is None else self.unembed
-        return ctx.constrain(h @ unembed.T, "batch", "seq", "vocab")
+        if not is_dtensor(unembed):
+            return h @ unembed.T
+        # each rank multiplies its own tokens by its own vocab rows,
+        # gathered over the embed dim (FSDP's gather); DTensor's plan for
+        # the product may split the embed dim instead, and a vocab that
+        # does not divide its axis then gives every rank the partial
+        # logits of the global batch
+        B, S, _ = h.shape
+        spec = ctx.spec_for(("batch", "seq", "vocab"),
+                            (B, S, unembed.shape[0]))
+        h_spec, w_spec = spec[:2], spec[2:]
+        return ctx.kernel_map(lambda x, w: x @ w.T, (h_spec, w_spec), spec,
+                              h, unembed, partial=(ctx.spec_axes(w_spec),
+                                                   ctx.spec_axes(h_spec)))
 
     def source(self, src: Optional[torch.Tensor], name: str
                ) -> torch.Tensor:

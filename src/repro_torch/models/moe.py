@@ -40,7 +40,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamDef, act_fn
-from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
+from repro_torch.parallel.sharding import (NULL_CTX, ShardingCtx,
+                                           SumOverGroup, is_dtensor)
 
 
 def moe_schema(cfg: ModelConfig, layers: int) -> dict:
@@ -245,22 +246,6 @@ def _moe_a2a_map(p, x, cfg: ModelConfig, ctx: ShardingCtx):
                       x_spec, w_specs, {}, ctx)
 
 
-class _SumOverGroup(torch.autograd.Function):
-    """All-reduce (sum) of partial outputs whose sum every rank then uses
-    alike; the gradient of each partial is the gradient of the sum, which
-    each rank already holds whole, so the backward passes it on as it
-    is."""
-
-    @staticmethod
-    def forward(ctx, t, group):
-        from torch.distributed import _functional_collectives as funcol
-        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
 def _shared_experts(p, xf: torch.Tensor, act: str) -> torch.Tensor:
     f = act_fn(act)
     h = xf @ p.shared_up
@@ -299,7 +284,7 @@ def moe_ffn_ep(p, x: torch.Tensor, cfg: ModelConfig, group) -> torch.Tensor:
     y = (ys.reshape(T, k, D) * w[..., None].to(ys.dtype)).sum(dim=1)
     if p.shared_up is not None:                 # hidden dim sliced
         y = y + _shared_experts(p, xf, cfg.act)
-    y = _SumOverGroup.apply(y, group)
+    y = SumOverGroup.apply(y, group)
     return y.reshape(B, S, D)
 
 

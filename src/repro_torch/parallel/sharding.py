@@ -316,6 +316,23 @@ class ShardingCtx:
 
 NULL_CTX = ShardingCtx(mesh=None)
 
+
+class SumOverGroup(torch.autograd.Function):
+    """All-reduce (sum) of partial outputs whose sum every rank then uses
+    alike; the gradient of each partial is the gradient of the sum, which
+    each rank already holds whole, so the backward passes it on as it
+    is."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        from torch.distributed import _functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(t, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 # how deep the scopes of sharded runs are nested on this thread: the inner
 # ones (a checkpointed block's recompute, inside the backward of a step)
 # must not end the outer one, and ``implicit_replication`` does not nest

@@ -13,7 +13,9 @@ distributed by ``ctx.distribute``), every rank passes the same global
 batch: the step places it by ``"batch"`` (each rank keeps its rows), the
 forward and backward run on DTensors, each gradient is reduced to its
 parameter's placement, and ``loss`` and ``grad_norm`` come back whole on
-every rank.  The
+every rank.  The loss is computed on each rank's vocab shard of the
+logits (:func:`vocab_parallel_cross_entropy`), as GSPMD computes the
+reference's: no rank builds the global logits or their gradient.  The
 gradients come from autograd through the model's forward; on a GPU the
 flash attention and SSD scan go through their ``autograd.Function``s,
 whose backwards are CUDA kernels too (the reference's Pallas kernels
@@ -42,6 +44,88 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     return (lse - ll).mean()
 
 
+class _ShardNLL(torch.autograd.Function):
+    """Per-token NLL (b, s) in float32 from one rank's logits (b, s,
+    V_local), whose column 0 is column ``lo`` of the vocab.
+
+    With ``groups`` (those of the mesh axes that split the vocab) the row
+    max, the sum of exponentials and the label's logit are all-reduced
+    over them (max, sum, sum).  Without, the logits hold the whole vocab
+    and the NLL is :func:`cross_entropy`'s: logsumexp minus gather of the
+    float32 logits, bit for bit.
+
+    The backward runs no collective: g·softmax − g·onehot on the shard,
+    from the saved logits (in their own dtype: no float32 copy is kept)
+    and log-sum-exp, in the arithmetic of autograd's backward of
+    :func:`cross_entropy` (g·exp(x − lse), then −g added at the label),
+    so that without groups the gradient is autograd's bit for bit."""
+
+    @staticmethod
+    def forward(fctx, logits, labels, lo, groups):
+        from torch.distributed import _functional_collectives as funcol
+
+        def reduce(t, op):
+            for g in groups:
+                t = funcol.wait_tensor(funcol.all_reduce(t, op, g))
+            return t
+
+        col = labels.long() - lo
+        hit = (col >= 0) & (col < logits.shape[-1])
+        col = torch.where(hit, col, 0)
+        if groups:
+            m = reduce(logits.amax(dim=-1).float(), "max")
+            sumexp = (logits - m[..., None]).exp_().sum(dim=-1)
+            lse = m + torch.log(reduce(sumexp, "sum"))
+            ll = torch.gather(logits, -1, col[..., None])[..., 0].float()
+            ll = reduce(torch.where(hit, ll, 0.0), "sum")
+        else:
+            x = logits.float()
+            lse = torch.logsumexp(x, dim=-1)
+            ll = torch.gather(x, -1, col[..., None])[..., 0]
+        fctx.save_for_backward(logits, col, hit, lse)
+        return lse - ll
+
+    @staticmethod
+    def backward(fctx, g):
+        logits, col, hit, lse = fctx.saved_tensors
+        p = (logits - lse[..., None]).exp_().mul_(g[..., None])
+        p.scatter_add_(-1, col[..., None],
+                       torch.where(hit, -g, 0.0)[..., None])
+        return p.to(logits.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 ctx: ShardingCtx) -> torch.Tensor:
+    """Per-token NLL (B, S) of the DTensor ``logits`` (B, S, V) at
+    ``labels`` (B, S), placed by ``("batch", "seq")`` and replicated over
+    the vocab's mesh axes, each rank working on its own shard
+    (``ctx.kernel_map`` of :class:`_ShardNLL`).
+
+    Where the ``"vocab"`` rule splits V over mesh axes of more than one
+    rank, the shards' partial results are reduced over those axes.
+    Elsewhere (the ``fsdp`` layout, a vocab that does not divide the axis,
+    an axis of one rank) each rank's logits hold the whole vocab and no
+    collective runs: its NLL and gradient are :func:`cross_entropy`'s bit
+    for bit.  Either way no DTensor ``gather`` builds the gradient of the
+    global logits."""
+    B, S, V = logits.shape
+    lspec = ctx.spec_for(("batch", "seq", "vocab"), (B, S, V))
+    tspec = ctx.spec_for(("batch", "seq"), (B, S))
+    entry = lspec[2] if len(lspec) > 2 else None
+    # DTensor's Shard splits V as torch.chunk does, axis by axis
+    lo, size, groups = 0, V, []
+    for a in ((entry,) if isinstance(entry, str) else entry or ()):
+        n = ctx.shape[a]
+        if n > 1:
+            chunk = -(-size // n)
+            c = ctx.mesh.get_local_rank(a)
+            lo += c * chunk
+            size = max(0, min(chunk, size - c * chunk))
+            groups.append(ctx.group(a))
+    return ctx.kernel_map(lambda x, t: _ShardNLL.apply(x, t, lo, groups),
+                          (lspec, tspec), tspec, logits, labels)
+
+
 def loss_fn(model: Transformer, batch: dict,
             ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """The cross entropy of ``model`` on ``batch``: ``tokens`` and
@@ -50,12 +134,9 @@ def loss_fn(model: Transformer, batch: dict,
     logits = model(batch["tokens"], vision_embed=batch.get("vision_embed"),
                    enc_embed=batch.get("enc_embed"), ctx=ctx)
     labels = ctx.place(batch["labels"].to(logits.device), ("batch", "seq"))
-    if is_dtensor(logits):
-        # DTensor's aten.gather rule mis-masks a vocab-sharded input
-        # (IndexError in its partial's mask), so the labels' logits are
-        # read with the vocab replicated
-        logits = ctx.constrain(logits, "batch", "seq", None)
-    return cross_entropy(logits, labels)
+    if not is_dtensor(logits):
+        return cross_entropy(logits, labels)
+    return vocab_parallel_cross_entropy(logits, labels, ctx).mean()
 
 
 def _grads(model: Transformer, params: dict, batch: dict,
