@@ -3742,6 +3742,7 @@ def parallel_phase(dev) -> None:
 # traced on a fake process group of 256 or 512 ranks in a process of its
 # own (the group is process-wide), the placement analysis on the card.
 DRYRUN_CELLS = (("smollm-135m", "train_4k", "off"),
+                ("starcoder2-7b", "train_4k", "off"),
                 ("deepseek-v2-lite-16b", "decode_32k", "on"))
 DRYRUN_TIMEOUT_S = 600
 DRYRUN_MESH_SEQ = 256

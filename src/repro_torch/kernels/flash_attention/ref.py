@@ -9,7 +9,10 @@ a running max ``m``, denominator ``l`` and accumulator ``acc`` in float32
 the finite mask value ``NEG_INF``.  Memory is O(S * block) instead of
 the O(S^2) score matrix, under autograd too: each query block is
 recomputed in the backward (``torch.utils.checkpoint``), as the
-reference checkpoints its ``q_step``.
+reference checkpoints its ``q_step``.  The padded, repeated and cast K
+and V reach each block's checkpoint as its inputs, not through the
+closure, so that an enclosing checkpoint drops them with every other
+saved tensor and recomputes them in the backward.
 
 Contract (shared with the kernel and ``ops.py``):
   q (B, H, Sq, Dh), k/v (B, Hkv, Sk, Dh), GQA via H % Hkv == 0;
@@ -53,9 +56,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(Dh)
     dev = q.device
 
-    def q_step(qc, qpos, n_blocks: int):
+    def q_step(qc, k, v, qpos, n_blocks: int):
         """The output of one block of queries over its first ``n_blocks``
-        key blocks."""
+        key blocks of ``k`` and ``v``."""
         acc = torch.zeros_like(qc)
         m = torch.full(qc.shape[:3], NEG_INF, dtype=work, device=dev)
         l = torch.zeros(qc.shape[:3], dtype=work, device=dev)
@@ -79,7 +82,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     # under autograd each query block is recomputed in the backward rather
     # than kept (the reference's jax.checkpoint of its q_step): the blocks'
-    # (q_block, kv_block) scores would otherwise be kept for every layer
+    # (q_block, kv_block) scores would otherwise be kept for every layer.
+    # k and v go in as the checkpoint's arguments, not through q_step's
+    # closure: a checkpoint saves its arguments through the saved-tensor
+    # hooks, so an enclosing checkpoint (a model block's) drops them and
+    # recomputes them, where a closure keeps every layer's full-width
+    # float32 copies alive until its backward.  Cast and repeat stay
+    # above, once: per block, the K/V gradients would sum in another order
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     blocks = []
@@ -95,7 +104,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n_blocks = nk
         if causal and first >= 0:
             n_blocks = min(nk, (first + q_block - 1) // kv_block + 1)
-        blocks.append(checkpoint(q_step, qc, qpos, n_blocks,
+        blocks.append(checkpoint(q_step, qc, k, v, qpos, n_blocks,
                                  use_reentrant=False)
-                      if keep else q_step(qc, qpos, n_blocks))
+                      if keep else q_step(qc, k, v, qpos, n_blocks))
     return torch.cat(blocks, dim=2)[:, :, :Sq].to(dtype)
