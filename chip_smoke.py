@@ -163,8 +163,10 @@ toolkit.  The script
    implicit 8^3 torus (``swap_select``, ``torus_hop``) bit-equal to the
    one-device dispatch; every line with the card's name and power limit;
 7g. runs the dry run (the ``dryrun`` phase): ``python -m
-   repro_torch.launch.dryrun`` on smollm-135m x train_4k (16 x 16 mesh)
-   and deepseek-v2-lite-16b x decode_32k (2 x 16 x 16), each in a process
+   repro_torch.launch.dryrun`` on smollm-135m and starcoder2-7b x
+   train_4k and llama-3.2-vision-11b x decode_32k (its sharded decode,
+   the cross layers included; 16 x 16 mesh) and deepseek-v2-lite-16b x
+   decode_32k (2 x 16 x 16), each in a process
    of its own (its fake process group of 256 or 512 ranks is
    process-wide) with the placement analysis on the card, each row printed
    with the launches of each placement kernel in it, and the train
@@ -3743,7 +3745,8 @@ def parallel_phase(dev) -> None:
 # own (the group is process-wide), the placement analysis on the card.
 DRYRUN_CELLS = (("smollm-135m", "train_4k", "off"),
                 ("starcoder2-7b", "train_4k", "off"),
-                ("deepseek-v2-lite-16b", "decode_32k", "on"))
+                ("deepseek-v2-lite-16b", "decode_32k", "on"),
+                ("llama-3.2-vision-11b", "decode_32k", "off"))
 DRYRUN_TIMEOUT_S = 600
 DRYRUN_MESH_SEQ = 256
 PLACEMENT_KERNELS = ("swap_select", "swap_gain", "torus_hop", "fattree_hop")

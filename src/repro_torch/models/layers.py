@@ -131,16 +131,86 @@ def gqa_schema(cfg: ModelConfig, layers: int) -> dict:
     }
 
 
+def _by_heads(fn, q, k, v, ctx: ShardingCtx):
+    """``fn(q, k, v)`` -> (B, H, S, Dh), an attention of q (B, H, S, Dh)
+    over k/v (B, Hkv, T, Dh), on each rank's batch and query heads
+    (``kernel_map``: heads are independent, so each is computed exactly
+    as on one device).  Where the KV heads divide the heads' mesh axes
+    too, each rank holds its own KV heads; where only the query heads
+    do, K and V are whole on each rank (their gradient partial over the
+    heads' axes) and each rank's query heads meet the KV heads they map
+    to under the GQA repeat (:func:`_own_kv`).  Where the query heads do
+    not divide, every rank runs every head of its batch."""
+    b = ctx.batch_entry(q.shape[0])
+    H, Hkv = q.shape[1], k.shape[1]
+    entry = ctx.head_entry(H, Hkv)
+    qh = ctx.query_head_entry(H)
+    if entry is not None or qh is None:
+        spec = (b, entry)
+        return ctx.kernel_map(fn, (spec, spec, spec), spec, q, k, v)
+    lo, n, _ = ctx.local_range(qh, H)
+    axes = ctx.spec_axes((qh,))
+    return ctx.kernel_map(
+        lambda q, k, v: fn(q, *_own_kv(k, v, lo, n, H // Hkv)),
+        ((b, qh), (b,), (b,)), (b, qh), q, k, v, partial=((), axes, axes))
+
+
+def _own_kv(k, v, lo: int, n: int, groups: int):
+    """K and V cut to the KV heads that query heads ``lo`` .. ``lo + n -
+    1`` meet (query head i meets KV head ``i // groups``): the one KV head
+    where they share it, else each query head's own copy."""
+    first, last = lo // groups, (lo + n - 1) // groups
+    if first == last:
+        return k[:, first:first + 1], v[:, first:first + 1]
+    idx = torch.arange(lo, lo + n, device=k.device) // groups
+    return k[:, idx], v[:, idx]
+
+
 def _flash(q, k, v, impl: str, ctx: ShardingCtx):
     """The causal flash attention of q (B, H, S, Dh) over k/v (B, Hkv,
-    S, Dh); under a mesh, on each rank's batch and heads (``local_map``:
-    heads are independent, so the kernel computes its heads exactly)."""
+    S, Dh); under a mesh, on each rank's batch and heads
+    (:func:`_by_heads`)."""
     fn = functools.partial(flash_attention, causal=True, impl=impl)
     if not is_dtensor(q):
         return fn(q, k, v)
-    spec = (ctx.batch_entry(q.shape[0]),
-            ctx.head_entry(q.shape[1], k.shape[1]))
-    return ctx.kernel_map(fn, (spec, spec, spec), spec, q, k, v)
+    return _by_heads(fn, q, k, v, ctx)
+
+
+def _softmax_attention(q, k, v, *, causal: bool,
+                       cache_pos: Optional[int] = None):
+    """The plain softmax attention of q (B, H, S, Dh) over k/v (B, Hkv, T,
+    Dh), K and V repeated to the query heads: masked causally, or, with
+    ``cache_pos``, past the write point of a decode step's cache."""
+    groups = q.shape[1] // max(k.shape[1], 1)
+    if groups > 1:
+        k = k.repeat_interleave(groups, dim=1)
+        v = v.repeat_interleave(groups, dim=1)
+    S = q.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhsk,bhtk->bhst", q, k).float() * scale
+    if cache_pos is not None:
+        t = torch.arange(k.shape[2], device=q.device)
+        qpos = cache_pos + torch.arange(S, device=q.device)
+        scores = torch.where(t[None, :] <= qpos[:, None], scores, -1e30)
+    elif causal:
+        t = torch.arange(S, device=q.device)
+        scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bhtk->bhsk", probs, v)
+
+
+def _attend(q, k, v, ctx: ShardingCtx, *, causal: bool):
+    """:func:`_softmax_attention` without a cache.  On a mesh whose heads'
+    axes the query heads divide and the KV heads do not, on each rank's
+    batch and own query heads (:func:`_by_heads`), where DTensor's plan
+    would compute every query head on every rank; elsewhere on DTensor's
+    plan (which may leave the output sharded over more axes than the
+    batch's, and the residual stream with it)."""
+    fn = functools.partial(_softmax_attention, causal=causal)
+    if is_dtensor(q) and ctx.head_entry(q.shape[1], k.shape[1]) is None \
+            and ctx.query_head_entry(q.shape[1]) is not None:
+        return _by_heads(fn, q, k, v, ctx)
+    return fn(q, k, v)
 
 
 def _proj(eq: str, x: torch.Tensor, w: torch.Tensor,
@@ -219,23 +289,16 @@ def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
         out = _flash(q, k, v, impl, ctx)
         return _proj("bhsk,hkd->bsd", out, p.wo, ctx), None
 
-    groups = n_heads // max(k.shape[1], 1)
-    if groups > 1:
-        k = k.repeat_interleave(groups, dim=1)
-        v = v.repeat_interleave(groups, dim=1)
-
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.einsum("bhsk,bhtk->bhst", q, k).float() * scale
     if cache is not None:
-        # decode: mask positions beyond the write point
-        t = torch.arange(k.shape[2], device=x.device)
-        qpos = cache_pos + torch.arange(S, device=x.device)
-        scores = torch.where(t[None, :] <= qpos[:, None], scores, -1e30)
-    elif causal:
-        t = torch.arange(S, device=x.device)
-        scores = torch.where(t[None, :] <= t[:, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhst,bhtk->bhsk", probs, v)
+        # decode: mask positions beyond the write point.  On a mesh the
+        # sequence-sharded cache stays where it is and the step's query
+        # heads (a few values) go whole to each rank, so that DTensor's
+        # plan splits the scores by the cache's sequence, whatever the
+        # heads do (a split heads dim it cannot flatten in torch 2.11)
+        out = _softmax_attention(ctx.constrain(q, "batch"), k, v,
+                                 causal=False, cache_pos=cache_pos)
+    else:
+        out = _attend(q, k, v, ctx, causal=causal)
     return _proj("bhsk,hkd->bsd", out, p.wo, ctx), new_cache
 
 
@@ -331,22 +394,19 @@ def flash_decode_gqa(p, x: torch.Tensor, cache: tuple, cache_pos: int, *,
     return _proj("bhsk,hkd->bsd", out, p.wo, ctx), (ck, cv)
 
 
-def cross_attention(p, x: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+def cross_attention(p, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
     """Attention of ``x``'s queries to a frozen cross K/V cache ``k``,
     ``v`` (B, Hkv, S_src, Dh): no rope, no mask, the plain softmax (the
     reference's ``serve.decode._cross_from_cache``).  ``x`` is already
-    normalised by the caller's cross-attention norm."""
-    q = torch.einsum("bsd,dhk->bhsk", x, p.wq)
-    groups = q.shape[1] // k.shape[1]
-    if groups > 1:
-        k = k.repeat_interleave(groups, dim=1)
-        v = v.repeat_interleave(groups, dim=1)
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhsk,bhtk->bhst", q, k).float() * scale
-    o = torch.einsum("bhst,bhtk->bhsk", torch.softmax(s, dim=-1).to(v.dtype),
-                     v)
-    return torch.einsum("bhsk,hkd->bsd", o, p.wo)
+    normalised by the caller's cross-attention norm.  On a mesh, on each
+    rank's batch and heads (:func:`_by_heads`), the cache read as its
+    schema places it (DTensor's own plan for the einsums flattens a split
+    heads dim, which torch 2.11 refuses)."""
+    q = _proj("bsd,dhk->bhsk", x, p.wq, ctx)
+    fn = functools.partial(_softmax_attention, causal=False)
+    o = _by_heads(fn, q, k, v, ctx) if is_dtensor(q) else fn(q, k, v)
+    return _proj("bhsk,hkd->bsd", o, p.wo, ctx)
 
 
 # --------------------------------------------------------------------------

@@ -49,7 +49,9 @@ from repro_torch.models.layers import (ParamDef, cross_attention,
                                        mlp_schema, rmsnorm, rope_freqs)
 from repro_torch.models.moe import moe_ffn, moe_schema
 from repro_torch.models.ssm import mamba2_block, mamba2_schema
-from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
+from repro_torch.parallel.sharding import (NULL_CTX, ShardingCtx,
+                                           is_dtensor, lookup_by_columns,
+                                           lookup_by_rows, matmul_by_columns)
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port cannot run yet."""
@@ -291,7 +293,7 @@ class CrossBlock(DenseBlock):
             a, _ = gqa_attention(self, x, None, None, n_heads=cfg.n_heads,
                                  kv_override=(src,), ctx=ctx)
         else:
-            a = cross_attention(self, x, *cross_kv)
+            a = cross_attention(self, x, *cross_kv, ctx=ctx)
         h = h + a
         return h + mlp(self, rmsnorm(h, self.ln2), cfg.act, ctx)
 
@@ -323,7 +325,7 @@ class DecoderBlock(Leaves):
                                  n_heads=cfg.n_heads, kv_override=(enc,),
                                  ctx=ctx)
         else:
-            a = cross_attention(self.cross, x, *cross_kv)
+            a = cross_attention(self.cross, x, *cross_kv, ctx=ctx)
         h = h + a
         return h + mlp(self, rmsnorm(h, self.ln3), cfg.act, ctx), kc
 
@@ -410,32 +412,71 @@ class Transformer(nn.Module):
 
     def embed(self, tokens: torch.Tensor,
               ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
-        if not is_dtensor(self.tok_emb):
-            return self.tok_emb[tokens.to(self.device)]
-        # DTensor's rule for the lookup's backward (aten.index_put with a
-        # batch-sharded index) fails in some torch releases (a Shard(-1)
-        # it does not normalise): each rank looks its own tokens up in the
-        # gathered table, whose gradient is then partial over the batch
-        spec = (ctx.batch_entry(tokens.shape[0]),)
-        return ctx.kernel_map(lambda w, t: w[t], ((), spec), spec,
-                              self.tok_emb, tokens,
-                              partial=(ctx.spec_axes(spec), ()))
+        """The rows of ``tokens`` in ``tok_emb``.  On a mesh each rank
+        looks its own tokens up in its own part of the table
+        (``kernel_map``; DTensor's rule for the lookup's backward,
+        ``aten.index_put`` with a batch-sharded index, fails in some torch
+        releases) and no rank gathers the whole table: where the vocab is
+        split, each rank gathers its rows over the embed dim (FSDP's
+        gather), takes the tokens in its range (zero rows for the others)
+        and the rows are summed over the vocab's axes, one row and zeros,
+        so exact; where it is not, the token ids and the looked-up columns
+        move (:func:`~repro_torch.parallel.sharding.lookup_by_columns`).
+        The table's gradient is partial over the batch axes that split the
+        tokens it meets."""
+        w = self.tok_emb
+        if not is_dtensor(w):
+            return w[tokens.to(self.device)]
+        t_spec = (ctx.batch_entry(tokens.shape[0]),)
+        v_entry, e_entry = (*ctx.spec_for(("vocab", "embed"),
+                                          tuple(w.shape)), None, None)[:2]
+        t_axes = ctx.spec_axes(t_spec)
+        if v_entry is not None:
+            lo, _, groups = ctx.local_range(v_entry, w.shape[0])
+            return ctx.kernel_map(
+                lambda w, t: lookup_by_rows(w, t, lo, groups),
+                ((v_entry,), t_spec), t_spec, w, tokens,
+                partial=(t_axes, ()))
+        steps = ctx.column_steps(e_entry, t_spec)
+        e_axes = ctx.spec_axes((e_entry,))
+        return ctx.kernel_map(
+            lambda w, t: lookup_by_columns(w, t, steps),
+            ((None, e_entry), t_spec), t_spec, w, tokens,
+            partial=(tuple(a for a in t_axes if a not in e_axes), ()))
 
     def logits(self, h: torch.Tensor,
                ctx: ShardingCtx = NULL_CTX) -> torch.Tensor:
+        """The final norm and the unembedding.  On a mesh each rank
+        multiplies its own tokens by its own vocab rows, gathered over the
+        embed dim (FSDP's gather; DTensor's plan for the product may split
+        the embed dim instead, and a vocab that does not divide its axis
+        then gives every rank the partial logits of the global batch).
+        Where the vocab is not split, those rows are the whole table: in
+        a step without a gradient whose partial logits take less than the
+        table (a decode step's few tokens), the activations move instead
+        (:func:`~repro_torch.parallel.sharding.matmul_by_columns`)."""
         h = rmsnorm(h, self.final_norm)
         unembed = self.tok_emb if self.unembed is None else self.unembed
         if not is_dtensor(unembed):
             return h @ unembed.T
-        # each rank multiplies its own tokens by its own vocab rows,
-        # gathered over the embed dim (FSDP's gather); DTensor's plan for
-        # the product may split the embed dim instead, and a vocab that
-        # does not divide its axis then gives every rank the partial
-        # logits of the global batch
-        B, S, _ = h.shape
+        B, S, d = h.shape
         spec = ctx.spec_for(("batch", "seq", "vocab"),
                             (B, S, unembed.shape[0]))
         h_spec, w_spec = spec[:2], spec[2:]
+        if not w_spec and not (torch.is_grad_enabled()
+                               and (h.requires_grad
+                                    or unembed.requires_grad)):
+            e_entry = (*ctx.spec_for(("vocab", "embed"),
+                                     tuple(unembed.shape)), None, None)[1]
+            steps = ctx.column_steps(e_entry, h_spec)
+            rows = B * S // (ctx._axis_size(h_spec[0]) if h_spec
+                             and h_spec[0] else 1)
+            for _, n, split, _ in steps:
+                rows *= n if split else 1
+            if steps and rows < d:
+                return ctx.kernel_map(
+                    lambda x, w: matmul_by_columns(x, w, steps),
+                    (h_spec, (None, e_entry)), spec, h, unembed)
         return ctx.kernel_map(lambda x, w: x @ w.T, (h_spec, w_spec), spec,
                               h, unembed, partial=(ctx.spec_axes(w_spec),
                                                    ctx.spec_axes(h_spec)))

@@ -132,6 +132,21 @@ def _scan(xh, dt, A, Bg, Cg, chunk: int, impl: str, ctx: ShardingCtx):
                           [heads, (b, hd)], xh, dt, A, Bg, Cg)
 
 
+def _step(state, x, dt, A, Bg, Cg, ctx: ShardingCtx):
+    """:func:`ssd_decode_step`; under a mesh, on each rank's batch and
+    heads (``local_map``, as :func:`_scan`: DTensor's own plan for its
+    einsum flattens a split heads dim, which torch 2.11 refuses)."""
+    if not is_dtensor(x):
+        return ssd_decode_step(state, x, dt, A, Bg, Cg)
+    b = ctx.batch_entry(x.shape[0])
+    G = Bg.shape[1]
+    hd = ctx.head_entry(x.shape[1], *((G,) if G > 1 else ()))
+    heads, groups = (b, hd), (b, hd if G > 1 else None)
+    return ctx.kernel_map(ssd_decode_step,
+                          (heads, heads, heads, (hd,), groups, groups),
+                          [heads, heads], state, x, dt, A, Bg, Cg)
+
+
 def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
                  conv_state: Optional[torch.Tensor] = None,
                  ssm_state: Optional[torch.Tensor] = None,
@@ -178,8 +193,8 @@ def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
     Cg = Cf.reshape(B_, -1, G, N)
 
     if ssm_state is not None:
-        y, new_ssm_state = ssd_decode_step(
-            ssm_state.float(), xh[:, 0], dt[:, 0], A, Bg[:, 0], Cg[:, 0])
+        y, new_ssm_state = _step(ssm_state.float(), xh[:, 0], dt[:, 0], A,
+                                 Bg[:, 0], Cg[:, 0], ctx)
         y = y[:, None].to(h.dtype)
         new_ssm_state = new_ssm_state.to(ssm_state.dtype)
     else:

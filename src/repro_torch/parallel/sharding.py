@@ -235,10 +235,49 @@ class ShardingCtx:
         KV heads, SSM groups) divides their size, so that each rank's
         query heads meet their own KV heads or groups; else None (every
         rank computes every head)."""
-        entry = self.spec_for(("heads",), (counts[0],))
-        if not entry or any(c % self._axis_size(entry[0]) for c in counts):
+        entry = self.query_head_entry(counts[0])
+        if entry is None or any(c % self._axis_size(entry) for c in counts):
+            return None
+        return entry
+
+    def query_head_entry(self, H: int):
+        """The spec entry of a query heads dim of ``H`` heads: the mesh
+        axes the ``"heads"`` rule names when ``H`` divides their size,
+        whatever the KV heads do (each rank then meets the KV heads of
+        its own query heads: ``models.layers``' attention); else None."""
+        entry = self.spec_for(("heads",), (H,))
+        if not entry or H % self._axis_size(entry[0]):
             return None
         return entry[0]
+
+    def local_range(self, entry, size: int) -> tuple[int, int, list]:
+        """This rank's part of a dim of ``size`` split by the spec entry
+        ``entry`` (DTensor's ``Shard``: ``torch.chunk``, axis by axis in
+        the entry's order): (its first index, its length, the process
+        groups of the entry's axes of more than one rank)."""
+        lo, n, groups = 0, size, []
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            k = self.shape[a]
+            if k > 1:
+                chunk = -(-n // k)
+                c = self.mesh.get_local_rank(a)
+                lo += c * chunk
+                n = max(0, min(chunk, n - c * chunk))
+                groups.append(self.group(a))
+        return lo, n, groups
+
+    def column_steps(self, entry, token_spec: Sequence) -> list:
+        """The steps of :func:`lookup_by_columns` and
+        :func:`matmul_by_columns` for a table whose columns the spec
+        entry ``entry`` splits, met by tokens placed by ``token_spec``:
+        for each of the entry's axes of more than one rank, outermost
+        first, (its process group, its size, whether it also splits the
+        tokens, this rank's index on it)."""
+        tokens = self.spec_axes(token_spec)
+        return [(self.group(a), self.shape[a], a in tokens,
+                 self.mesh.get_local_rank(a))
+                for a in ((entry,) if isinstance(entry, str)
+                          else entry or ()) if self.shape[a] > 1]
 
     def batch_entry(self, B: int):
         """The spec entry of a batch dim of size ``B``."""
@@ -331,6 +370,148 @@ class SumOverGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def _collective(name: str, t, *args, group):
+    """The functional collective ``name`` (``torch.ops._c10d_functional``)
+    of ``t`` over ``group``, waited for."""
+    c10d = torch.ops._c10d_functional
+    return c10d.wait_tensor(getattr(c10d, name)(t.contiguous(), *args,
+                                                 group.group_name))
+
+
+def _gather(t, group):
+    """The group's ``t`` stacked along dim 0, in group order."""
+    return _collective("all_gather_into_tensor", t, group.size(),
+                       group=group)
+
+
+def _exchange(t, group):
+    """All-to-all along dim 0: chunk j of ``t`` goes to group rank j; the
+    result's chunk j came from rank j."""
+    split = [t.shape[0] // group.size()] * group.size()
+    return _collective("all_to_all_single", t, split, split, group=group)
+
+
+def _columns(t, n: int) -> torch.Tensor:
+    """``t``'s dim-0 chunks, one from each of ``n`` ranks, side by side
+    along the last dim."""
+    return torch.cat(t.chunk(n, 0), dim=-1)
+
+
+class _LookupByRows(torch.autograd.Function):
+    """Rows ``w[ids - lo]`` of a table of which this rank holds rows
+    ``lo`` .. ``lo + len(w) - 1``, zero rows for the ids outside them,
+    summed over ``groups`` (:func:`lookup_by_rows`).  Only the ids are
+    kept for the backward, which recomputes which of them hit."""
+
+    @staticmethod
+    def forward(fctx, w, ids, lo, groups):
+        hit = (ids >= lo) & (ids < lo + w.shape[0])
+        rows = w[torch.where(hit, ids - lo, 0)].masked_fill_(
+            ~hit[..., None], 0)
+        for g in groups:
+            rows = _collective("all_reduce", rows, "sum", group=g)
+        fctx.lo, fctx.shape = lo, w.shape
+        fctx.save_for_backward(ids)
+        return rows
+
+    @staticmethod
+    def backward(fctx, g):
+        (ids,) = fctx.saved_tensors
+        hit = (ids >= fctx.lo) & (ids < fctx.lo + fctx.shape[0])
+        gw = torch.zeros(fctx.shape, dtype=g.dtype, device=g.device)
+        gw.index_put_((torch.where(hit, ids - fctx.lo, 0),),
+                      g.masked_fill(~hit[..., None], 0), accumulate=True)
+        return gw, None, None, None
+
+
+def lookup_by_rows(w: torch.Tensor, ids: torch.Tensor, lo: int,
+                   groups: Sequence) -> torch.Tensor:
+    """The rows ``table[ids]`` (ids (b, ...) -> (b, ..., d)), where this
+    rank holds the table's rows ``lo`` .. ``lo + len(w) - 1`` (``w``, whole
+    columns) and ``groups`` are the process groups over which the rows are
+    split: each rank looks up the ids in its range, zero rows for the
+    others, and the rows are summed over the groups (an all-reduce of one
+    row and zeros: the table's rows bit for bit).  The gradient of each
+    rank's rows comes from its own ids; the gradient of the rows, whole on
+    every rank, is passed on as it is (:class:`SumOverGroup`'s rule)."""
+    return _LookupByRows.apply(w, ids, lo, tuple(groups))
+
+
+class _LookupByColumns(torch.autograd.Function):
+    """Rows ``w[ids]`` of a table of which this rank holds the column
+    slice ``w`` (V, d_local), whole rows built by moving token ids and
+    looked-up columns, never the table (:func:`lookup_by_columns`)."""
+
+    @staticmethod
+    def forward(fctx, w, ids, steps):
+        def fwd(ids, level):
+            if level == len(steps):
+                return w[ids]
+            group, n, split, _ = steps[level]
+            if split:           # the group's tokens differ: trade columns
+                rows = fwd(_gather(ids, group), level + 1)
+                return _columns(_exchange(rows, group), n)
+            return _columns(_gather(fwd(ids, level + 1), group), n)
+
+        fctx.steps, fctx.shape = steps, w.shape
+        fctx.save_for_backward(ids)
+        return fwd(ids, 0)
+
+    @staticmethod
+    def backward(fctx, g):
+        # the ids are gathered again (a few integers) rather than kept
+        (ids,) = fctx.saved_tensors
+        for group, n, split, i in fctx.steps:
+            parts = g.chunk(n, -1)
+            # the forward's exchange backwards; a replicated gradient's own
+            # columns where the forward gathered looked-up columns
+            if split:
+                ids = _gather(ids, group)
+                g = _exchange(torch.cat(parts, 0), group)
+            else:
+                g = parts[i]
+        gw = torch.zeros(fctx.shape, dtype=g.dtype, device=g.device)
+        gw.index_put_((ids,), g, accumulate=True)
+        return gw, None, None
+
+
+def lookup_by_columns(w: torch.Tensor, ids: torch.Tensor,
+                      steps: Sequence) -> torch.Tensor:
+    """The rows ``table[ids]`` (ids (b, ...) -> (b, ..., d)), where this
+    rank holds the columns ``w`` (V, d_local) of the table and
+    :meth:`ShardingCtx.column_steps` describes how they are split.  On an
+    axis that splits the tokens, the ids are gathered, each rank looks up
+    its columns for all of them, and one all-to-all gives each rank its
+    own tokens' columns; on an axis that does not, the looked-up columns
+    are gathered.  The rows are copies of the table's, bit for bit; the
+    gradient is ``w``'s slice of the table's, summed over the tokens of
+    the ranks that split them."""
+    return _LookupByColumns.apply(w, ids, tuple(steps))
+
+
+def matmul_by_columns(x: torch.Tensor, w: torch.Tensor,
+                      steps: Sequence) -> torch.Tensor:
+    """``x @ table.T`` (x (b, ..., d) -> (b, ..., V)) where this rank
+    holds the columns ``w`` (V, d_local) of the table, split as
+    :meth:`ShardingCtx.column_steps` says: the activations move, never
+    the table.  On an axis that splits the tokens, one all-to-all gives
+    each rank its group's tokens on its own columns, and the partial
+    products are summed and scattered back (reduce-scatter); on one that
+    does not, each rank's partial product is summed (all-reduce).  The
+    products sum over d in another order than one matmul.  No autograd
+    (the collectives run outside it)."""
+    if not steps:
+        return x @ w.T
+    (group, n, split, i), rest = steps[0], steps[1:]
+    if split:
+        part = matmul_by_columns(
+            _exchange(torch.cat(x.chunk(n, -1), 0), group), w, rest)
+        return _collective("reduce_scatter_tensor", part, "sum", n,
+                           group=group)
+    part = matmul_by_columns(x.chunk(n, -1)[i], w, rest)
+    return _collective("all_reduce", part, "sum", group=group)
 
 
 # how deep the scopes of sharded runs are nested on this thread: the inner

@@ -119,7 +119,8 @@ def _decode(model: Transformer, caches: dict, tokens: torch.Tensor,
                     h, cfg, cos, sin, pos=pos,
                     cache=_attn_cache(caches["blocks"], layer), ctx=ctx)
             h = model.cross[g](h, cfg,
-                               cross_kv=_attn_cache(caches["cross"], g))
+                               cross_kv=_attn_cache(caches["cross"], g),
+                               ctx=ctx)
         return model.logits(h, ctx), caches
     if cfg.family == "encdec":
         for layer, blk in enumerate(model.decoder):

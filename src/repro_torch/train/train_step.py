@@ -111,17 +111,7 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     B, S, V = logits.shape
     lspec = ctx.spec_for(("batch", "seq", "vocab"), (B, S, V))
     tspec = ctx.spec_for(("batch", "seq"), (B, S))
-    entry = lspec[2] if len(lspec) > 2 else None
-    # DTensor's Shard splits V as torch.chunk does, axis by axis
-    lo, size, groups = 0, V, []
-    for a in ((entry,) if isinstance(entry, str) else entry or ()):
-        n = ctx.shape[a]
-        if n > 1:
-            chunk = -(-size // n)
-            c = ctx.mesh.get_local_rank(a)
-            lo += c * chunk
-            size = max(0, min(chunk, size - c * chunk))
-            groups.append(ctx.group(a))
+    lo, _, groups = ctx.local_range(lspec[2] if len(lspec) > 2 else None, V)
     return ctx.kernel_map(lambda x, t: _ShardNLL.apply(x, t, lo, groups),
                           (lspec, tspec), tspec, logits, labels)
 

@@ -213,3 +213,50 @@ def test_plain_flash_without_grad_is_bit_equal(dtype, one_thread):
         got = flash_attention_ref(q, k, v, q_block=16, kv_block=32)
         want = _flash_ref_closure(q, k, v, q_block=16, kv_block=32)
     assert torch.equal(got, want)
+
+
+class _Alive(TorchDispatchMode):
+    """After every op, the storages of ``dtype`` of at least ``n``
+    elements that ops have made (or viewed) and that are still alive,
+    each with the op that made it and its address; ``seen`` collects
+    them."""
+
+    def __init__(self, dtype, n):
+        super().__init__()
+        self.dtype, self.n = dtype, n
+        self.made, self.seen = [], []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor) and t.dtype == self.dtype:
+                st = t.untyped_storage()
+                if st.nbytes() // t.element_size() >= self.n:
+                    self.made.append((str(func), weakref.ref(st)))
+        for op, ref in self.made:
+            st = ref()
+            if st is not None and (op, st.data_ptr()) not in self.seen:
+                self.seen.append((op, st.data_ptr()))
+        return out
+
+
+@pytest.mark.parametrize("case", ["even", "padded"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_no_grad_keeps_no_full_width_float32_copy(dtype, case, one_thread):
+    """Without a graph, no float32 storage of K's size or more that the
+    plain version makes is alive at any point of the call, the output's
+    own aside: q, K and V are cast a block at a time and each output
+    block goes back to the input dtype before the join.  The output is
+    the closure form's bit for bit."""
+    B, H, Hkv, Dh, qb, kb = 1, 4, 2, 32, 32, 64
+    S = 256 if case == "even" else 250
+    q, k, v = _qkv(4, B, H, Hkv, S, S, Dh, DTYPES[dtype])
+    with torch.no_grad(), _Alive(torch.float32, B * Hkv * S * Dh) as mode:
+        out = flash_attention_ref(q, k, v, q_block=qb, kv_block=kb)
+    # the output's storage and the inputs' (views of q, k, v) aside
+    known = {t.untyped_storage().data_ptr() for t in (out, q, k, v)}
+    copies = [op for op, ptr in mode.seen if ptr not in known]
+    assert copies == [], f"full-width float32 copies: {copies}"
+    with torch.no_grad():
+        want = _flash_ref_closure(q, k, v, q_block=qb, kv_block=kb)
+    assert out.dtype == want.dtype and torch.equal(out, want)

@@ -1,7 +1,8 @@
 """The port's dry run end to end: ``python -m repro_torch.launch.dryrun
 --device cpu`` in a subprocess (its fake process group of 256 ranks is
 process-wide), on the cells ``tests/test_dryrun.py`` compiles with the
-reference, with the reference test's assertions: one row, ``ok``, 256
+reference and the VLM's sharded decode (its cross layers on the frozen
+cross cache), with the reference test's assertions: one row, ``ok``, 256
 devices, a memory term, a dominant term, ``fits_hbm`` and both placement
 policies.  No parameter storage is allocated: every tensor is fake."""
 import json
@@ -20,6 +21,7 @@ ROOT = Path(__file__).resolve().parents[1]
 @pytest.mark.parametrize("arch,shape", [
     ("smollm-135m", "decode_32k"),
     ("mamba2-2.7b", "long_500k"),
+    ("llama-3.2-vision-11b", "decode_32k"),
 ])
 def test_dryrun_cell_traces(arch, shape, tmp_path):
     out = tmp_path / "cell.jsonl"

@@ -12,7 +12,9 @@
   reference's flash-decode run within 1e-5;
 * ``decode_step`` on the 2x2 mesh without flash-decoding (GQA, MLA and
   SSM caches placed by the context, the attention caches sharded by
-  sequence) equals the one-device decode within 1e-5;
+  sequence; the VLM's and the encoder-decoder model's frozen cross caches
+  seeded, placed as their schema says) equals the one-device decode
+  within 1e-5;
 * every arch's reduced forward on the 2x2 mesh (each family's blocks on
   DTensors, its seeded vision or source embeddings placed by batch)
   equals its one-device forward within 1e-5;
@@ -43,7 +45,8 @@ ARCHS = ["deepseek-v2-lite-16b", "llama-3.2-vision-11b", "mamba2-2.7b",
          "minicpm3-4b", "nemotron-4-340b", "phi3.5-moe-42b",
          "seamless-m4t-large-v2", "smollm-135m", "starcoder2-7b",
          "zamba2-7b"]
-DECODE_ARCHS = ["smollm-135m", "minicpm3-4b", "mamba2-2.7b"]
+DECODE_ARCHS = ["smollm-135m", "minicpm3-4b", "mamba2-2.7b",
+                "llama-3.2-vision-11b", "seamless-m4t-large-v2"]
 
 
 def _tokens(vocab: int, shape: tuple, seed: int) -> np.ndarray:
@@ -61,7 +64,7 @@ def moe_job(rank, world, tmp):
     from repro_torch.interop import model_params, seeded_params
     from repro_torch.parallel.sharding import ShardingCtx, make_mesh
     from repro_torch.serve.decode import decode_step
-    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.serve.kvcache import cache_schema, init_cache
     from repro_torch.train.train_step import _grads
 
     mesh = make_mesh("cpu", (2, 2))
@@ -129,6 +132,14 @@ def moe_job(rank, world, tmp):
         sharded = ctx.distribute(model_params(cfg, params_np, device="cpu"))
         caches1 = init_cache(cfg, 2, CACHE, device="cpu")
         caches = init_cache(cfg, 2, CACHE, device="cpu", ctx=ctx)
+        if "cross" in caches:           # a frozen cross cache, seeded
+            rng = np.random.default_rng(9)
+            sch = cache_schema(cfg, 2, CACHE)["cross"]
+            for name, d in sch.items():
+                t = torch.from_numpy(rng.standard_normal(d.shape).astype(
+                    np.float32))
+                caches1["cross"][name] = t
+                caches["cross"][name] = ctx.place(t, d.axes)
         dec = torch.from_numpy(_tokens(cfg.vocab, (2, DECODE_STEPS), 8))
         err = 0.0
         for i in range(DECODE_STEPS):

@@ -81,6 +81,7 @@ def trace_peak(arch: str, shape: str, min_bytes: float) -> dict:
     return {"arch": arch, "shape": shape,
             "total_bytes_per_dev": row["total_bytes_per_dev"],
             "arg_bytes_per_dev": row["arg_bytes_per_dev"],
+            "fits_hbm": row["fits_hbm"], "lower_s": row["lower_s"],
             "live_at_peak": rows}
 
 
