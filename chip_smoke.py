@@ -3747,6 +3747,14 @@ DRYRUN_CELLS = (("smollm-135m", "train_4k", "off"),
                 ("starcoder2-7b", "train_4k", "off"),
                 ("deepseek-v2-lite-16b", "decode_32k", "on"),
                 ("llama-3.2-vision-11b", "decode_32k", "off"))
+# every model family reduced on a fake 2 x 8 mesh, at a train step, a
+# prefill and a decode step (tools/dryrun_families.py), in three processes
+# beside the cells: the paths the full cells above do not take
+DRYRUN_FAMILY_SPLITS = (
+    ("zamba2-7b", "llama-3.2-vision-11b"),
+    ("mamba2-2.7b", "smollm-135m", "phi3.5-moe-42b"),
+    ("starcoder2-7b", "nemotron-4-340b", "deepseek-v2-lite-16b",
+     "minicpm3-4b", "seamless-m4t-large-v2"))
 DRYRUN_TIMEOUT_S = 600
 DRYRUN_MESH_SEQ = 256
 PLACEMENT_KERNELS = ("swap_select", "swap_gain", "torus_hop", "fattree_hop")
@@ -3757,7 +3765,10 @@ def dryrun_cells(device: str) -> list:
     each of ``DRYRUN_CELLS``, side by side, the placement analysis on
     ``device``, each writing its row and guest graph under
     ``chiprun_out/dryrun/``; each row printed with the launches of each
-    placement kernel in it by name.  Returns the guest graphs' paths."""
+    placement kernel in it by name.  Beside them, dryrun/families: the
+    reduced families of ``DRYRUN_FAMILY_SPLITS``, every trace run to its
+    end and none over more than a rank's own heads.  Returns the guest
+    graphs' paths."""
     import os
     import shutil
 
@@ -3765,6 +3776,13 @@ def dryrun_cells(device: str) -> list:
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    families = []
+    for i, archs in enumerate(DRYRUN_FAMILY_SPLITS):
+        log = (out / f"families_{i}.log").open("w")
+        families.append((out / f"families_{i}.json", log, subprocess.Popen(
+            [sys.executable, str(ROOT / "tools" / "dryrun_families.py"),
+             "--out", str(out / f"families_{i}.json"), "--archs", *archs],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)))
     runs = []
     for arch, shape, pod in DRYRUN_CELLS:
         tag = f"{arch}__{shape}"
@@ -3801,6 +3819,26 @@ def dryrun_cells(device: str) -> list:
         emit({**rec, "ok": ok})
         if not ok:
             bad.append(f"{arch}/{shape}")
+    traces, rcs = {}, []
+    for path, log, proc in families:
+        try:
+            rcs.append(proc.wait(max(1.0, DRYRUN_TIMEOUT_S
+                                     - (time.perf_counter() - t0))))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rcs.append(proc.wait())
+        log.close()
+        traces.update(json.loads(path.read_text()) if path.exists() else {})
+    failed = sorted(k for k, r in traces.items() if r["error"])
+    all_heads = sorted(k for k, r in traces.items() if r["heads"])
+    want = sum(map(len, DRYRUN_FAMILY_SPLITS)) * 3
+    ok = rcs == [0] * len(rcs) and len(traces) == want \
+        and not failed and not all_heads
+    emit({"phase": "dryrun/families", "card": card(), "rcs": rcs,
+          "s": time.perf_counter() - t0, "traces": len(traces),
+          "failed": failed, "all_heads": all_heads, "ok": ok})
+    if not ok:
+        bad.append("families")
     if bad:
         raise AssertionError(f"dry-run cells failed: {bad} "
                              f"(logs in {out})")

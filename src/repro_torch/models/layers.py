@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.parallel.sharding import (NULL_CTX, ShardingCtx,
-                                           SumOverGroup, is_dtensor)
+                                           SumOverGroup, is_dtensor,
+                                           pad_shards)
 
 # sequences at or above this length use the flash (online-softmax) attention
 # path: O(S * block) memory instead of the O(S^2) score matrix
@@ -82,10 +83,30 @@ def abstract_params(schema: dict, dtype: torch.dtype = torch.bfloat16
 # norms / activations / rope
 # --------------------------------------------------------------------------
 
+class _MeanSquare(torch.autograd.Function):
+    """The float32 mean of ``x``'s squares over its last dim (kept), with
+    a backward that makes one float32 temporary of ``x``'s size and keeps
+    ``x`` in its own dtype: autograd's makes four at once (the mean's
+    expanded gradient, ``x ** 1``, its double and their product) and keeps
+    the float32 copy.  The gradient is autograd's bit for bit: ``(g / n)
+    · 2x``, rounded once."""
+
+    @staticmethod
+    def forward(fctx, x):
+        fctx.save_for_backward(x)
+        return x.float().square().mean(dim=-1, keepdim=True)
+
+    @staticmethod
+    def backward(fctx, g):
+        (x,) = fctx.saved_tensors
+        gx = x.to(torch.float32, copy=True).mul_(2).mul_(g / x.shape[-1])
+        return gx.to(x.dtype)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     """The reference's rounding: ``rsqrt(var + eps)`` goes to x's dtype
     before the multiply."""
-    var = x.float().square().mean(dim=-1, keepdim=True)
+    var = _MeanSquare.apply(x)
     return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
 
 
@@ -201,36 +222,75 @@ def _softmax_attention(q, k, v, *, causal: bool,
 
 def _attend(q, k, v, ctx: ShardingCtx, *, causal: bool):
     """:func:`_softmax_attention` without a cache.  On a mesh whose heads'
-    axes the query heads divide and the KV heads do not, on each rank's
-    batch and own query heads (:func:`_by_heads`), where DTensor's plan
-    would compute every query head on every rank; elsewhere on DTensor's
-    plan (which may leave the output sharded over more axes than the
-    batch's, and the residual stream with it)."""
+    axes the query heads divide, on each rank's batch and own query heads
+    (:func:`_by_heads`): DTensor's own plan for the einsums flattens the
+    split heads dim with the batch's (which some torch releases refuse,
+    and others only at some shapes), and computes every query head on
+    every rank where the KV heads do not divide.  Where the query heads
+    do not divide, they are whole on every rank and DTensor's plan runs
+    the einsums on each rank's batch."""
     fn = functools.partial(_softmax_attention, causal=causal)
-    if is_dtensor(q) and ctx.head_entry(q.shape[1], k.shape[1]) is None \
-            and ctx.query_head_entry(q.shape[1]) is not None:
+    if is_dtensor(q) and ctx.query_head_entry(q.shape[1]) is not None:
         return _by_heads(fn, q, k, v, ctx)
     return fn(q, k, v)
 
 
-def _proj(eq: str, x: torch.Tensor, w: torch.Tensor,
-          ctx: ShardingCtx) -> torch.Tensor:
+def _proj(eq: str, x: torch.Tensor, w: torch.Tensor, ctx: ShardingCtx,
+          dim: str = "h") -> torch.Tensor:
     """``torch.einsum(eq, x, w)`` of an activation ``x`` (batch first)
-    and a weight ``w`` with a heads dim (``h`` in ``eq``).  On a mesh
-    whose rules leave that dim unsharded (its size does not divide the
-    axis), each rank runs the einsum on its own batch rows with the
-    weight gathered whole (``kernel_map``; the weight's gradient is a
-    partial sum over the batch axes), as the reference's GSPMD does:
-    DTensor's own einsum may shard the flattened heads x head-dim product
-    over the free axis and then cannot unflatten it."""
+    and a weight ``w`` with a dim the rules may shard (``dim`` in ``eq``:
+    the heads, or an SSM's inner dim).  On a mesh:
+
+    * where that dim is unsharded (its size does not divide the axis),
+      each rank runs the einsum on its own batch rows with the weight
+      gathered whole, as the reference's GSPMD does: DTensor's own
+      einsum may shard the flattened heads x head-dim product over the
+      free axis and then cannot unflatten it;
+    * where it is sharded and summed over (an output projection, to
+      ``bsd``), each rank runs the einsum on its own batch rows and its
+      own slice of that dim, and the partial sums are all-reduced: the
+      output is placed as the residual stream is, whatever the torch
+      release, and the backward gives each rank the gradient of its own
+      slice only (DTensor's plan leaves a ``Partial`` output, and in its
+      backward builds the gradient of every head on each rank before
+      cutting out its own).  Without a gradient and with fewer token
+      rows on a rank than ``d`` (a decode step), DTensor's plan, which
+      moves those rows rather than gathering the weight, and its partial
+      sums all-reduced at once;
+    * where it is sharded and kept (an input projection), DTensor's plan.
+
+    Each ``kernel_map`` gathers the weight over its other dims (FSDP's
+    gather); its gradient is a partial sum over the batch axes."""
     if not is_dtensor(w):
         return torch.einsum(eq, x, w)
-    h = eq.split("->")[0].split(",")[1].index("h")
-    if any(getattr(pl, "dim", None) == h for pl in w.placements):
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    axes = [a for a, pl in zip(ctx.shape, w.placements)
+            if pl.is_shard(ws.index(dim))]
+    b = ctx.batch_entry(x.shape[0])
+    if axes and dim in out:
         return torch.einsum(eq, x, w)
-    spec = (ctx.batch_entry(x.shape[0]),)
-    return ctx.kernel_map(functools.partial(torch.einsum, eq), (spec, ()),
-                          spec, x, w, partial=((), ctx.spec_axes(spec)))
+    if not axes:
+        return ctx.kernel_map(functools.partial(torch.einsum, eq),
+                              ((b,), ()), (b,), x, w,
+                              partial=((), ctx.spec_axes((b,))))
+    rows = x.shape[0] // ctx._axis_size(b or ()) * x.shape[xs.index("s")]
+    if not torch.is_grad_enabled() and rows < w.shape[ws.index("d")]:
+        return ctx.constrain(torch.einsum(eq, x, w),
+                             "batch", "seq", "act_embed")
+    entry = axes[0] if len(axes) == 1 else tuple(axes)
+    groups = [ctx.group(a) for a in axes if ctx.shape[a] > 1]
+
+    def local(x, w):
+        y = torch.einsum(eq, x, w)
+        for g in groups:
+            y = SumOverGroup.apply(y, g)
+        return y
+    return ctx.kernel_map(
+        local, (tuple(b if c == "b" else entry if c == dim else None
+                      for c in xs),
+                tuple(entry if c == dim else None for c in ws)),
+        (b,), x, w, partial=((), ctx.spec_axes((b,))))
 
 
 def gqa_attention(p, x: torch.Tensor, cos, sin, *, n_heads: int,
@@ -486,7 +546,7 @@ def mla_attention(p, x: torch.Tensor, cos, sin, *, mla: MLAConfig,
         q_full = torch.cat([q_nope, q_rope], dim=-1)
         # pad V to the K head dim for the shared kernel, trim after
         pad = q_full.shape[-1] - v.shape[-1]
-        v_p = F.pad(v, (0, pad)) if pad else v
+        v_p = pad_shards(v, (0, pad)) if pad else v
         out = _flash(q_full, k_full, v_p, impl, ctx)
         out = out[..., :mla.v_head_dim]
         return _proj("bhsk,hkd->bsd", out, p.wo, ctx), None

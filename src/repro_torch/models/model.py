@@ -304,7 +304,9 @@ class DecoderBlock(Leaves):
     branch at ``FLASH_MIN_SEQ`` tokens or more), cross-attention to the
     encoder's output (``cross``, ``ln2``; K and V from ``enc`` or, in
     decode, the frozen cross cache ``cross_kv``), then the MLP (``ln3``),
-    each with a residual.  Returns (h, the self-attention cache)."""
+    each with a residual.  Returns (h, the self-attention cache); on a
+    mesh h's batch is split over the model axis too, where it divides
+    (:meth:`ShardingCtx.spread_batch`)."""
 
     def __init__(self, shapes: dict, *, device, dtype):
         super().__init__(shapes, device=device, dtype=dtype)
@@ -327,12 +329,14 @@ class DecoderBlock(Leaves):
         else:
             a = cross_attention(self.cross, x, *cross_kv, ctx=ctx)
         h = h + a
-        return h + mlp(self, rmsnorm(h, self.ln3), cfg.act, ctx), kc
+        h = h + mlp(self, rmsnorm(h, self.ln3), cfg.act, ctx)
+        return ctx.spread_batch(h), kc
 
 
 class MambaBlock(Leaves):
     """One pre-norm mamba2 layer with a residual, the reference's
-    ``_mamba_layer``.
+    ``_mamba_layer``; on a mesh the output's batch is split over the
+    model axis too, where it divides (:meth:`ShardingCtx.spread_batch`).
 
     Its parameters carry the reference's names and orientation
     (``in_proj``, ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias``,
@@ -344,7 +348,7 @@ class MambaBlock(Leaves):
         o, caches = mamba2_block(self, rmsnorm(h, self.ln1), cfg,
                                  conv_state=conv_state, ssm_state=ssm_state,
                                  impl=impl, ctx=ctx)
-        return h + o, caches
+        return ctx.spread_batch(h + o), caches
 
 
 class Transformer(nn.Module):

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_folded
-from repro_torch.models.layers import ParamDef, rmsnorm
+from repro_torch.models.layers import ParamDef, _proj, rmsnorm
 from repro_torch.parallel.sharding import NULL_CTX, ShardingCtx, is_dtensor
 
 
@@ -118,7 +118,8 @@ def _scan(xh, dt, A, Bg, Cg, chunk: int, impl: str, ctx: ShardingCtx):
     """``ssd_scan``; under a mesh, on each rank's batch and heads
     (``local_map``: each head's scan is independent, and a rank's heads
     meet their own groups when the groups divide the axis too, or the one
-    group every head shares)."""
+    group every head shares, whose gradient is then a partial sum over
+    the heads' axes: each rank's heads give their part)."""
     fn = functools.partial(ssd_scan, chunk=chunk, impl=impl)
     if not is_dtensor(xh):
         return fn(xh, dt, A, Bg, Cg)
@@ -128,8 +129,10 @@ def _scan(xh, dt, A, Bg, Cg, chunk: int, impl: str, ctx: ShardingCtx):
     g = hd if G > 1 else None
     heads = (b, None, hd)
     groups = (b, None, g)
+    shared = () if g else ctx.spec_axes((hd,))
     return ctx.kernel_map(fn, (heads, heads, (hd,), groups, groups),
-                          [heads, (b, hd)], xh, dt, A, Bg, Cg)
+                          [heads, (b, hd)], xh, dt, A, Bg, Cg,
+                          partial=((), (), (), shared, shared))
 
 
 def _step(state, x, dt, A, Bg, Cg, ctx: ShardingCtx):
@@ -145,6 +148,32 @@ def _step(state, x, dt, A, Bg, Cg, ctx: ShardingCtx):
     return ctx.kernel_map(ssd_decode_step,
                           (heads, heads, heads, (hd,), groups, groups),
                           [heads, heads], state, x, dt, A, Bg, Cg)
+
+
+def _causal_conv(x, w, b):
+    """The causal depthwise conv of x (B, S, C) with w (d_conv, C) and b
+    (C,): a sum of d_conv shifted products over the zero-padded input (no
+    F.conv1d: cuDNN would run float32 in TF32)."""
+    S, K = x.shape[1], w.shape[0]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    return sum(pad[:, k:k + S] * w[k] for k in range(K)) + b
+
+
+def _conv(x, w, b, ctx: ShardingCtx):
+    """:func:`_causal_conv`; under a mesh on each rank's own batch rows,
+    split over the model axis too where they divide
+    (:meth:`ShardingCtx.spread_entry`), with every channel (``kernel_map``:
+    the weights gathered, their gradient a partial sum over the rows'
+    axes).  DTensor's own pad fails in some torch releases, and its plan
+    for the products differs between them (one splits the channels, and
+    then gathers the output once for each of the three slices the layer
+    takes of it)."""
+    if not is_dtensor(x):
+        return _causal_conv(x, w, b)
+    spec = (ctx.spread_entry(x.shape[0]),)
+    axes = ctx.spec_axes(spec)
+    return ctx.kernel_map(_causal_conv, (spec, (), ()), spec, x, w, b,
+                          partial=((), axes, axes))
 
 
 def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
@@ -178,11 +207,7 @@ def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
             + p.conv_b
         conv = conv[:, None, :]
     else:
-        # causal conv: a sum of d_conv shifted products over the padded
-        # input (no F.conv1d: cuDNN would run float32 in TF32)
-        pad = F.pad(conv_in, (0, 0, s.d_conv - 1, 0))
-        conv = sum(pad[:, w:w + S] * p.conv_w[w] for w in range(s.d_conv)) \
-            + p.conv_b
+        conv = _conv(conv_in, p.conv_w, p.conv_b, ctx)
     conv = F.silu(conv)
     xi = conv[..., :d_in]
     Bf = conv[..., d_in:d_in + G * N]
@@ -203,5 +228,5 @@ def mamba2_block(p, h: torch.Tensor, cfg: ModelConfig, *,
     y = y + xh * p.d_skip[None, None, :, None].to(y.dtype)
     y = y.reshape(B_, -1, d_in)
     y = rmsnorm(y * F.silu(z), p.norm_w)
-    out = (y @ p.out_proj).to(h.dtype)
+    out = _proj("bsi,id->bsd", y, p.out_proj, ctx, dim="i").to(h.dtype)
     return out, (new_conv_state, new_ssm_state)

@@ -35,6 +35,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # logical axis -> mesh axis (or tuple of mesh axes)
@@ -229,6 +230,27 @@ class ShardingCtx:
         return x.redistribute(self.mesh,
                               self.placements_for(axes, tuple(x.shape)))
 
+    def spread_entry(self, B: int):
+        """The spec entry of a batch dim of size ``B`` split over the batch
+        axes and the ``"model"`` axis too, where B divides them all (each
+        rank keeps whole rows of its own), else :meth:`batch_entry`."""
+        axes = tuple(a for a in self.shape
+                     if a in self.batch_axes() or a == "model")
+        if not axes or B % self._axis_size(axes):
+            return self.batch_entry(B)
+        return axes[0] if len(axes) == 1 else axes
+
+    def spread_batch(self, x):
+        """An activation (B, ...) placed by :meth:`spread_entry`: the
+        residual stream between layers that the reference leaves
+        unconstrained (a mamba2 layer, an encoder-decoder model's decoder
+        layer), so that a rank keeps only its own rows of each
+        checkpointed layer input.  No-op without a mesh."""
+        if self.mesh is None:
+            return x
+        return x.redistribute(self.mesh, self.placements_of(
+            (self.spread_entry(x.shape[0]),)))
+
     def head_entry(self, *counts: int):
         """The spec entry of a heads dim a kernel runs over: the mesh axes
         the ``"heads"`` rule names when each of ``counts`` (query heads,
@@ -354,6 +376,24 @@ class ShardingCtx:
                      for a in ((e,) if isinstance(e, str) else e))
 
 NULL_CTX = ShardingCtx(mesh=None)
+
+
+def pad_shards(x: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:
+    """``F.pad(x, pad)`` with zeros; a DTensor is padded on each rank's
+    own shard and keeps its placements (DTensor's own ``constant_pad_nd``
+    fails to redistribute its input in some torch releases).  Padding is
+    linear, so a ``Partial`` input pads as well as a sharded one; the
+    padded dims must not be sharded."""
+    if not is_dtensor(x):
+        return F.pad(x, pad)
+    dims = {x.ndim - 1 - i // 2 for i in range(len(pad))}
+    if any(pl.is_shard(d) for pl in x.placements for d in dims):
+        raise ValueError(f"pad {tuple(pad)} reaches a sharded dim of "
+                         f"{x.placements}")
+    from torch.distributed.tensor.experimental import local_map
+    pl = list(x.placements)
+    return local_map(lambda t: F.pad(t, pad), out_placements=pl,
+                     in_placements=(pl,), device_mesh=x.device_mesh)(x)
 
 
 class SumOverGroup(torch.autograd.Function):

@@ -20,10 +20,13 @@ not.
   train shape for both vocabs.
 
 Every tensor an operation makes while the step runs is read as it is
-made (the profiler's recorder), so one that lives only briefly counts.
+made (``tools/dryrun_families.py``'s ``recording``, on the profiler's
+recorder), so one that lives only briefly counts.
 The fake group is process-wide, so the traces run in a process of their
 own (``torch_ranks.run_alone``)."""
+import importlib.util
 import json
+from pathlib import Path
 
 import pytest
 
@@ -31,6 +34,7 @@ pytest.importorskip("torch")
 
 from torch_ranks import run_alone  # noqa: E402
 
+TOOL = Path(__file__).resolve().parents[1] / "tools" / "dryrun_families.py"
 MESH, H, HKV, D = (2, 8), 32, 4, 64
 S, B, CACHE, N_VIS = 2048, 2, 64, 64
 VOCABS = {"divides": 4096, "does-not-divide": 4094}
@@ -44,24 +48,16 @@ def traced(out):
 
     from repro_torch.configs.base import ShapeConfig, reduced
     from repro_torch.configs.registry import get_arch
-    from repro_torch.core import profiler
     from repro_torch.core.profiler import fake_mode, profile_torch
     from repro_torch.launch.dryrun import build_cell, fake_process_group
     from repro_torch.models import model as M
     from repro_torch.parallel.sharding import ShardingCtx, make_mesh
 
-    made = []
-    record = profiler._Recorder.record
-
-    def recording(self, func, args, kwargs, res):
-        if not func.is_view:        # a view makes no storage
-            made.extend((str(func), tuple(t.shape), t.dtype)
-                        for t in profiler._tensors(res))
-        return record(self, func, args, kwargs, res)
-
+    spec = importlib.util.spec_from_file_location("dryrun_families", TOOL)
+    families = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(families)
     res = {}
-    profiler._Recorder.record = recording
-    try:
+    with families.recording() as made:
         with fake_process_group(MESH[0] * MESH[1]):
             mesh = make_mesh("cpu", MESH)
             for vocab, V in VOCABS.items():
@@ -100,8 +96,6 @@ def traced(out):
                             if len(shp) == 2 and dt == torch.bfloat16
                             and V in (shp[0], shp[1])
                             and shp[0] * shp[1] >= V * D})}
-    finally:
-        profiler._Recorder.record = record
     with open(out, "w") as f:
         json.dump(res, f)
 

@@ -10,8 +10,9 @@ peak, grouped by the line of the port that made each one (storages under
         --shape train_4k [--top 20] [--min-mb 50] [--out peak.json]
 
 The figures are those of ``core.profiler.profile_torch``'s ``peak_bytes``
-(the row's ``total_bytes_per_dev``): a CPU trace, not a device
-measurement.
+(the row's ``total_bytes_per_dev``), with the row's roofline terms
+(``compute_s``, ``memory_s``, ``collective_s``) and its collective bytes
+a GPU by kind: a CPU trace, not a device measurement.
 """
 from __future__ import annotations
 
@@ -82,6 +83,9 @@ def trace_peak(arch: str, shape: str, min_bytes: float) -> dict:
             "total_bytes_per_dev": row["total_bytes_per_dev"],
             "arg_bytes_per_dev": row["arg_bytes_per_dev"],
             "fits_hbm": row["fits_hbm"], "lower_s": row["lower_s"],
+            "compute_s": row["compute_s"], "memory_s": row["memory_s"],
+            "collective_s": row["collective_s"],
+            "collectives_by_kind": row["collectives_by_kind"],
             "live_at_peak": rows}
 
 
